@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field, fields, is_dataclass
+from typing import Any
 
 
 @dataclass
@@ -112,8 +113,73 @@ class Config:
     encoder: str = "bigru"        # "bigru" | "transformer"
     decoder: str = "ctc"          # "ctc" | "attention" | "hybrid"
 
+    def override(self, **dotted: Any) -> "Config":
+        """Apply dotted-path overrides, e.g. ``override(**{"train.seed": 3})``;
+        a string value is coerced to the field's type."""
+        cfg = dataclasses.replace(self)
+        for key, value in dotted.items():
+            parts = key.split(".")
+            obj = cfg
+            for p in parts[:-1]:
+                if not is_dataclass(getattr(obj, p, None)):
+                    raise KeyError(f"no config field {key!r}")
+                child = dataclasses.replace(getattr(obj, p))
+                setattr(obj, p, child)
+                obj = child
+            leaf = parts[-1]
+            if not hasattr(obj, leaf):
+                raise KeyError(f"no config field {key!r}")
+            cur = getattr(obj, leaf)
+            if cur is not None and not isinstance(value, type(cur)):
+                value = _coerce(value, cur)
+            setattr(obj, leaf, value)
+        return cfg
+
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+
+def _coerce(value: Any, like: Any) -> Any:
+    t = type(like)
+    if t is bool:
+        return str(value).lower() in ("1", "true", "yes")
+    if t is tuple:
+        items = str(value).strip("()[] ").split(",")
+        elem = type(like[0]) if like else int
+        return tuple(elem(i) for i in items if i.strip())
+    return t(value)
+
+
+def parse_overrides(argv: list[str]) -> dict[str, str]:
+    """``['train.seed=3', ...]`` -> ``{'train.seed': '3', ...}``."""
+    out = {}
+    for a in argv:
+        if "=" not in a:
+            raise ValueError(f"override must be key=value, got {a!r}")
+        k, v = a.split("=", 1)
+        out[k] = v
+    return out
+
+
+def preset(name: str) -> Config:
+    """A named configuration of the JAX package's ``preset``. Only the
+    patchify + transformer family is ported; the other presets (conv3d stem,
+    bi-GRU) are later slices."""
+    presets = {
+        # the flagship training configuration: patchify stem, transformer
+        # encoder, hybrid CTC/attention loss
+        "transformer-patchify": Config(
+            name="transformer-patchify",
+            encoder="transformer",
+            decoder="hybrid",
+            model=ModelConfig(frontend="patchify"),
+            train=TrainConfig(ctc_weight=0.3, att_weight=0.7),
+        ),
+    }
+    if name not in presets:
+        raise KeyError(f"unknown or not yet ported preset {name!r}; have "
+                       f"{sorted(presets)}")
+    return presets[name]
 
 
 def from_dict(d: dict) -> Config:

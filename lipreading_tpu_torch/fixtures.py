@@ -2,9 +2,9 @@
 
 A numpy copy of the renderer in ``lipreading_tpu/fixtures.py`` (``make_clip``,
 ``make_clips``): the same seed gives the same frames, landmarks and text
-byte for byte, so clips with known transcripts reach the port without the
-JAX package. The caption track is left out: nothing in this package reads
-it.
+byte for byte, and the same WebVTT caption track (one cue per word, which
+``data/pipeline.FixtureVideoDataset`` cuts into samples), so clips with known
+transcripts reach the port without the JAX package.
 
 Each clip is a face (soft-edged ellipse with eyes, brows, nose and lips) that
 drifts and scales over time, with a mouth whose openness and width animate
@@ -19,6 +19,7 @@ import numpy as np
 
 from lipreading_tpu_torch.config import DataConfig
 from lipreading_tpu_torch.text import normalize_text
+from lipreading_tpu_torch.vtt import Cue, write_vtt
 
 # 28 drawable characters (a-z, space, apostrophe) -> distinct (openness, width)
 _CHARS = "abcdefghijklmnopqrstuvwxyz' "
@@ -50,6 +51,7 @@ class Clip:
     boxes: np.ndarray       # [T, 4] float32, face box (x0, y0, w, h)
     text: str               # normalized transcript
     fps: float
+    vtt: str                # WebVTT caption track for this clip
 
     @property
     def num_frames(self) -> int:
@@ -203,6 +205,22 @@ def _mouth_curves(text: str, frames_per_char: int):
     return o, w
 
 
+def _make_vtt(text: str, frames_per_char: int, fps: float) -> str:
+    cues = []
+    pos = 0
+    for word in text.split(" "):
+        start_c, end_c = pos, pos + len(word)
+        cues.append(
+            Cue(
+                start=start_c * frames_per_char / fps,
+                end=end_c * frames_per_char / fps,
+                text=word,
+            )
+        )
+        pos = end_c + 1  # the space char
+    return write_vtt(cues)
+
+
 def sample_text(rng: np.random.Generator, min_words=2, max_words=4) -> str:
     n = int(rng.integers(min_words, max_words + 1))
     return " ".join(LEXICON[int(i)] for i in rng.integers(0, len(LEXICON), n))
@@ -268,6 +286,7 @@ def make_clip(seed: int, cfg: DataConfig | None = None, text: str | None = None,
         boxes=boxes,
         text=text,
         fps=cfg.fps,
+        vtt=_make_vtt(text, cfg.frames_per_char, cfg.fps),
     )
 
 

@@ -1,14 +1,17 @@
-"""Loading the shipped weights without JAX, flax or msgpack.
+"""Reading and writing flax's msgpack trees without JAX, flax or msgpack.
 
 * ``msgpack_restore``: a pure-Python msgpack decoder for what flax's
   ``serialization.msgpack_serialize`` writes (maps, arrays, strings, bytes,
   integers, floats, nil and booleans, and flax's ndarray extension: ext type 1
   holding a packed ``(shape, dtype name, raw bytes)`` triple).
+* ``msgpack_serialize``: its inverse, byte for byte what flax writes for the
+  same tree (checkpoints, ``train/checkpoint.py``).
 * ``load_release``: a release checkpoint of ``assets/`` and its config.
 * ``load_assets``: the preprocessing weights (``detector.npz``, ``ert.npz``).
 * ``from_jax_params``: a numpy parameter tree, from a release or from the JAX
   package's ``init_model``, turned into the ``state_dict`` of
-  ``models.lipreader.LipReader``.
+  ``models.lipreader.LipReader``; ``to_jax_params`` is its inverse, the
+  nested tree a flax checkpoint stores.
 
 Nothing converted is written to disk: a release is decoded in memory at every
 load.
@@ -120,6 +123,112 @@ _FIXED = {
 }
 
 
+def _pack_len(out: bytearray, n: int, small: int | None, small_max: int,
+              codes: tuple[int, int, int]) -> None:
+    """A length header: ``small | n`` when ``n <= small_max`` (if the type
+    has a fixed form), else the 8-, 16- or 32-bit form in ``codes`` (None
+    where the type has no such form)."""
+    if small is not None and n <= small_max:
+        out.append(small | n)
+    elif codes[0] is not None and n <= 0xFF:
+        out += struct.pack(">BB", codes[0], n)
+    elif n <= 0xFFFF:
+        out += struct.pack(">BH", codes[1], n)
+    else:
+        out += struct.pack(">BI", codes[2], n)
+
+
+def _pack_int(out: bytearray, v: int) -> None:
+    if 0 <= v < 0x80 or -32 <= v < 0:
+        out += struct.pack(">b" if v < 0 else ">B", v)
+        return
+    for lo, hi, code, fmt in ((0x80, 0xFF, 0xCC, ">B"), (-0x80, -1, 0xD0, ">b"),
+                              (0x100, 0xFFFF, 0xCD, ">H"),
+                              (-0x8000, -0x81, 0xD1, ">h"),
+                              (0x10000, 0xFFFFFFFF, 0xCE, ">I"),
+                              (-0x80000000, -0x8001, 0xD2, ">i"),
+                              (0x100000000, 0xFFFFFFFFFFFFFFFF, 0xCF, ">Q"),
+                              (-0x8000000000000000, -0x80000001, 0xD3, ">q")):
+        if lo <= v <= hi:
+            out += struct.pack(">B", code) + struct.pack(fmt, v)
+            return
+    raise OverflowError(f"msgpack: integer {v} does not fit in 64 bits")
+
+
+def _pack_ext(out: bytearray, code: int, data: bytes) -> None:
+    n = len(data)
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixed:
+        out.append(fixed[n])
+    else:
+        _pack_len(out, n, None, 0, (0xC7, 0xC8, 0xC9))
+    out += struct.pack(">b", code) + data
+
+
+def _pack_ndarray(arr: np.ndarray) -> bytes:
+    inner = bytearray()
+    _pack(inner, [list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+    return bytes(inner)
+
+
+def _pack(out: bytearray, v) -> None:
+    if v is None:
+        out.append(0xC0)
+    elif v is True or v is False:
+        out.append(0xC3 if v else 0xC2)
+    elif type(v) is int:
+        _pack_int(out, v)
+    elif type(v) is float:
+        out += struct.pack(">Bd", 0xCB, v)
+    elif type(v) is str:
+        b = v.encode("utf-8")
+        _pack_len(out, len(b), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+        out += b
+    elif type(v) is bytes:
+        _pack_len(out, len(v), None, 0, (0xC4, 0xC5, 0xC6))
+        out += v
+    elif type(v) is dict:
+        # flax copies the tree with jax.tree_util.tree_map first, which
+        # sorts every dict's keys
+        _pack_len(out, len(v), 0x80, 15, (None, 0xDE, 0xDF))
+        for k in sorted(v):
+            _pack(out, k)
+            _pack(out, v[k])
+    elif type(v) is list:
+        _pack_len(out, len(v), 0x90, 15, (None, 0xDC, 0xDD))
+        for x in v:
+            _pack(out, x)
+    elif isinstance(v, np.ndarray):
+        _pack_ext(out, _EXT_NDARRAY, _pack_ndarray(v))
+    elif isinstance(v, np.generic):
+        _pack_ext(out, _EXT_NPSCALAR, _pack_ndarray(np.asarray(v)))
+    else:
+        raise TypeError(f"msgpack: cannot serialise {type(v).__name__}")
+
+
+def msgpack_serialize(tree) -> bytes:
+    """Encode a tree of dicts, lists, numpy arrays and scalars, str, bytes,
+    int, float, bool and None as ``flax.serialization.msgpack_serialize``
+    does (dict keys sorted, ndarrays as ext type 1, numpy scalars as ext
+    type 3). Arrays of
+    2**30 bytes or more, which flax would cut into chunks, are refused."""
+    def walk(x):
+        if isinstance(x, np.ndarray) and x.nbytes >= 2 ** 30:
+            raise ValueError("msgpack: arrays of 1 GiB or more are not "
+                             "supported")
+        if isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, list):
+            for v in x:
+                walk(v)
+
+    walk(tree)
+    out = bytearray()
+    _pack(out, tree)
+    return bytes(out)
+
+
 def msgpack_restore(data: bytes):
     """Decode one msgpack document written by flax (the tree of dicts, lists
     and numpy arrays that ``flax.serialization.msgpack_restore`` returns)."""
@@ -147,10 +256,6 @@ def load_assets(assets_dir: str | None = None):
     det = load_params(os.path.join(d, "detector.npz"))
     ert = ERTModel.load(os.path.join(d, "ert.npz"))
     return det, ert
-
-
-# parameter subtrees that belong to paths this package does not run yet
-_LATER_SLICES = {"att_decoder": "the attention decoder (joint beam leg)"}
 
 
 def from_jax_params(tree, cfg: Config) -> "OrderedDict[str, torch.Tensor]":
@@ -181,12 +286,24 @@ def from_jax_params(tree, cfg: Config) -> "OrderedDict[str, torch.Tensor]":
             out[prefix] = torch.from_numpy(np.array(arr, copy=True))
             return
         for k, v in items:
-            if not prefix and k in _LATER_SLICES:
-                continue
             walk(v, f"{prefix}.{k}" if prefix else str(k))
 
     walk(tree, "")
     return out
+
+
+def to_jax_params(state: "dict[str, torch.Tensor]") -> dict:
+    """A flat ``{"a.b.0.w": tensor}`` mapping (a ``state_dict``, or the
+    optimizer's moments) -> the nested tree of numpy arrays that flax stores,
+    with every list index a key "0", "1", ..."""
+    root: dict = {}
+    for name, t in state.items():
+        node = root
+        parts = name.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = t.detach().cpu().numpy()
+    return root
 
 
 def load_release_model(name: str = "transformer_hybrid_universal4",

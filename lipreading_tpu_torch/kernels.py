@@ -39,6 +39,11 @@ SIGNATURES = {
     # logits, lengths, ids, counts, B, T, V, blank, stream
     "ctc_greedy": [c_void_p, c_void_p, c_void_p, c_void_p, c_int, c_int,
                    c_int, c_int, c_void_p],
+    # lp_ext, skip, input_lengths, label_lengths, alpha, nll, B, T, S, stream
+    "ctc_lattice_fwd": [c_void_p] * 6 + [c_int] * 3 + [c_void_p],
+    # lp_ext, skip, input_lengths, label_lengths, alpha, nll, g, grad,
+    # B, T, S, stream
+    "ctc_lattice_bwd": [c_void_p] * 8 + [c_int] * 3 + [c_void_p],
 }
 
 

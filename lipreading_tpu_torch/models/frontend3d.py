@@ -6,7 +6,7 @@
               -> dense 192->P -> GN -> relu -> pool(1,2,2)
               -> conv3d(3,3,3) P->P -> GN -> relu -> pool(1,2,2)
               -> conv3d(3,3,3) P->P -> GN -> relu
-              -> flatten -> dense -> highway x N  -> [B,T,D]
+              -> flatten -> dense -> highway x N -> dropout -> [B,T,D]
 
 The reference-shaped conv3d stem (``frontend_apply``) is a later slice.
 """
@@ -17,12 +17,22 @@ import torch
 from torch import nn
 
 from lipreading_tpu_torch.config import ModelConfig
-from lipreading_tpu_torch.models.nn import Conv3d, Dense, GroupNorm, Highway, maxpool3d
+from lipreading_tpu_torch.models.nn import (
+    Conv3d,
+    Dense,
+    GroupNorm,
+    Highway,
+    dropout,
+    maxpool3d,
+)
 
 
 def patchify_apply(p: "Patchify", rois: torch.Tensor, cfg: ModelConfig,
-                   dtype: torch.dtype | None = None) -> torch.Tensor:
-    """[B, T, R, R] (or [B, T, R, R, 1]) -> [B, T, D]; inference only."""
+                   dtype: torch.dtype | None = None,
+                   gen: torch.Generator | None = None,
+                   rate: float = 0.0) -> torch.Tensor:
+    """[B, T, R, R] (or [B, T, R, R, 1]) -> [B, T, D]; dropout at ``rate``
+    on the output when ``gen`` is given (training)."""
     if rois.ndim == 5:
         rois = rois[..., 0]
     x = rois.to(dtype or torch.float32)
@@ -42,7 +52,7 @@ def patchify_apply(p: "Patchify", rois: torch.Tensor, cfg: ModelConfig,
     x = p.proj(x.reshape(B, T, -1), dtype)
     for hw in p.highway:
         x = hw(x, dtype)
-    return x
+    return dropout(x, rate, gen)
 
 
 class Patchify(nn.Module):
@@ -60,5 +70,5 @@ class Patchify(nn.Module):
         self.highway = nn.ModuleList(
             Highway(cfg.frontend_dim) for _ in range(cfg.highway_layers))
 
-    def forward(self, rois, dtype=None):
-        return patchify_apply(self, rois, self.cfg, dtype)
+    def forward(self, rois, dtype=None, gen=None, rate=0.0):
+        return patchify_apply(self, rois, self.cfg, dtype, gen, rate)

@@ -6,6 +6,11 @@ keep the JAX package's names and layouts (dense ``w`` is [in, out], conv
 (``io.from_jax_params``). ``dtype`` casts weights to the activation type at
 each call, as the JAX package does; normalisations compute in float32 and
 cast back.
+
+Randomness (dropout, initialisation) comes from an explicit
+``torch.Generator``; ``None`` means deterministic (no dropout). A generator
+gives other numbers than ``jax.random`` from the same seed, so the tests
+compare with dropout off.
 """
 
 from __future__ import annotations
@@ -96,6 +101,24 @@ def maxpool3d(x: torch.Tensor, window=(1, 2, 2)) -> torch.Tensor:
     return x.amax(dim=(2, 4, 6))
 
 
+def embedding(ids: torch.Tensor, table: torch.Tensor,
+              dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Rows of ``table`` [V, D] (cast to ``dtype`` when given) for ``ids``."""
+    return F.embedding(ids.long(), table if dtype is None else table.to(dtype))
+
+
+def dropout(x: torch.Tensor, rate: float,
+            gen: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout: keep with probability ``1 - rate`` and scale the kept
+    values by ``1 / (1 - rate)``; identity when ``gen`` is None or the rate
+    is 0. The mask is drawn from ``gen`` on the device of ``x``."""
+    if gen is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+
 def length_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     """[B] lengths -> [B, max_len] bool validity mask."""
     return (torch.arange(max_len, device=lengths.device)[None, :]
@@ -110,6 +133,15 @@ class Dense(nn.Module):
 
     def forward(self, x, dtype=None):
         return dense(x, self.w, self.b, dtype)
+
+
+class Embedding(nn.Module):
+    def __init__(self, vocab: int, dim: int):
+        super().__init__()
+        self.table = nn.Parameter(torch.zeros(vocab, dim))
+
+    def forward(self, ids, dtype=None):
+        return embedding(ids, self.table, dtype)
 
 
 class LayerNorm(nn.Module):

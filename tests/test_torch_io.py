@@ -97,8 +97,8 @@ def _small_cfg(framewise: bool = True) -> Config:
 
 def test_from_jax_params_fills_every_weight():
     """``init_model``'s tree (lists, not dicts) -> the port's state_dict:
-    every key present, every shape equal, values carried bit for bit; the
-    attention decoder (a later slice) is left out."""
+    every key present, every shape equal, values carried bit for bit, the
+    attention decoder's included."""
     from lipreading_tpu.config import Config as JConfig
     from lipreading_tpu.config import ModelConfig as JModel
 
@@ -114,7 +114,9 @@ def test_from_jax_params_fills_every_weight():
         assert sd[k].shape == v.shape, k
     np.testing.assert_array_equal(sd["encoder.layers.1.mlp.in.w"].numpy(),
                                   tree["encoder"]["layers"][1]["mlp"]["in"]["w"])
-    assert not any(k.startswith("att_decoder") for k in sd)
+    np.testing.assert_array_equal(
+        sd["att_decoder.layers.0.self.q.w"].numpy(),
+        tree["att_decoder"]["layers"][0]["self"]["q"]["w"])
 
 
 def test_load_release_model_on_cpu():
@@ -131,7 +133,8 @@ def test_load_assets_shapes():
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(import|from)\s+(jax|flax|msgpack|lipreading_tpu)(\.|\s|$)", re.M)
+    r"^\s*(import|from)\s+(jax|flax|msgpack|optax|lipreading_tpu)(\.|\s|$)",
+    re.M)
 
 
 def _port_sources():
@@ -144,8 +147,8 @@ def _port_sources():
 
 
 def test_port_imports_nothing_of_jax():
-    """The port and its smoke script import no jax, flax, msgpack or JAX
-    package module, and no kernel source includes PyTorch's headers."""
+    """The port and its smoke script import no jax, flax, msgpack, optax or
+    JAX package module, and no kernel source includes PyTorch's headers."""
     srcs = list(_port_sources())
     assert len(srcs) > 10
     for path in srcs:
@@ -154,3 +157,127 @@ def test_port_imports_nothing_of_jax():
         assert not _FORBIDDEN.search(text), path
         assert "torch/extension.h" not in text, path
         assert "cpp_extension" not in text, path
+
+
+def _writer_tree():
+    return {
+        "small": 5, "neg": -3, "neg8": -100, "u16": 60000, "i32": -70000,
+        "u64": 2**40, "i64": -2**40, "f": 1.5, "none": None, "t": True,
+        "fa": False, "s": "x" * 40, "s300": "y" * 300, "b": b"abc",
+        "nested": {"0": np.arange(6, dtype=np.int32).reshape(2, 3),
+                   "1": np.float32(2.5), "2": np.array(3, np.int32)},
+        "bf16": np.asarray(jax.numpy.arange(4, dtype=jax.numpy.bfloat16)),
+        "big": np.ones((70, 70), np.float32), "list": [1, 2, {"a": 3}],
+        "wide": {str(i): i for i in range(20)}, "empty": {},
+    }
+
+
+def test_msgpack_writer_matches_flax():
+    """Byte for byte what flax writes, for every type a checkpoint holds
+    (flax sorts dict keys: "10" before "2"), and read back by both."""
+    tree = _writer_tree()
+    data = tio.msgpack_serialize(tree)
+    assert data == serialization.msgpack_serialize(tree)
+    back = serialization.msgpack_restore(data)
+    assert back["wide"]["11"] == 11 and back["nested"]["1"] == np.float32(2.5)
+    with pytest.raises(TypeError):
+        tio.msgpack_serialize({"t": (1, 2)})
+
+
+def test_msgpack_writer_rewrites_a_release_byte_for_byte():
+    path = os.path.join(tio.ASSETS_DIR, "transformer_hybrid_universal4.msgpack")
+    with open(path, "rb") as f:
+        data = f.read()
+    assert tio.msgpack_serialize(tio.msgpack_restore(data)) == data
+
+
+def test_to_jax_params_inverts_from_jax_params():
+    tree, cfg = tio.load_release("transformer_hybrid_universal4")
+    back = tio.to_jax_params(tio.from_jax_params(tree, cfg))
+    want, got = dict(_leaves(tree)), dict(_leaves(back))
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        assert got[k].tobytes() == w.tobytes(), k
+
+
+def _ckpt_models(tmp_path):
+    """A small port trainer and the JAX tree and optax state of the same
+    configuration."""
+    from lipreading_tpu.config import Config as JConfig
+    from lipreading_tpu.config import ModelConfig as JModel
+    from lipreading_tpu.train.loop import make_optimizer
+    from lipreading_tpu_torch.train.loop import Trainer
+
+    cfg = _small_cfg()
+    jcfg = JConfig(encoder="transformer", decoder="hybrid",
+                   model=JModel(**cfg.model.__dict__))
+    params = init_model(jax.random.PRNGKey(1), jcfg)
+    tx = make_optimizer(jcfg)
+    tr = Trainer(cfg, str(tmp_path / "port"), device="cpu")
+    return tr, params, tx
+
+
+def _state_leaves(tree):
+    flat = jax.tree_util.tree_flatten_with_path(tree)[0]
+    return {jax.tree_util.keystr(k): np.asarray(v) for k, v in flat}
+
+
+def test_jax_reads_a_port_checkpoint(tmp_path):
+    """A port checkpoint after 2 optimizer updates, read by the JAX
+    package's load_checkpoint against its own templates: params and
+    opt_state equal leaf for leaf, the step and sidecar kept."""
+    from lipreading_tpu.train.checkpoint import load_checkpoint
+
+    tr, params, tx = _ckpt_models(tmp_path)
+    for _ in range(2):
+        for p in tr.model.parameters():
+            p.grad = torch.full_like(p, 0.01)
+        tr.opt.update()
+    tr.step = 2
+    path = tr.save()
+    step, jp, jo, it_state, extra = load_checkpoint(path, params,
+                                                    tx.init(params))
+    assert step == 2 and extra == {"config": "default"} and it_state == {}
+    want = _state_leaves(jax.tree_util.tree_map(
+        np.asarray, tio.to_jax_params(tr.model.state_dict())))
+    got = _state_leaves(serialization.to_state_dict(jp))
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        assert got[k].tobytes() == w.tobytes(), k
+    jo_sd = serialization.to_state_dict(jo)
+    assert int(jo_sd["1"]["0"]["count"]) == 2
+    assert int(jo_sd["1"]["2"]["count"]) == 2
+    mu = _state_leaves(jo_sd["1"]["0"]["mu"])
+    for k, t in tr.opt.mu.items():
+        key = "".join(f"['{p}']" for p in k.split("."))
+        assert mu[key].tobytes() == t.numpy().tobytes(), k
+
+
+def test_port_reads_a_jax_checkpoint(tmp_path):
+    """A JAX checkpoint (params and a stepped optax state) restored by the
+    port's Trainer: params and moments equal, count and step kept."""
+    import jax.numpy as jnp
+    import optax
+
+    from lipreading_tpu.train.checkpoint import save_checkpoint
+
+    tr, params, tx = _ckpt_models(tmp_path)
+    state = tx.init(params)
+    grads = jax.tree_util.tree_map(lambda p: jnp.full_like(p, 0.02), params)
+    for _ in range(3):
+        updates, state = tx.update(grads, state, params)
+        params = optax.apply_updates(params, updates)
+    save_checkpoint(tr.ckpt_dir, 3, params, state,
+                    iterator_state={"epoch": 1, "pos": 2, "seed": 0})
+    assert tr.restore() == {"epoch": 1, "pos": 2, "seed": 0}
+    assert tr.step == 3 and tr.opt.count == 3
+    want = dict(_leaves(jax.tree_util.tree_map(
+        np.asarray, serialization.to_state_dict(params))))
+    got = dict(_leaves(tio.to_jax_params(tr.model.state_dict())))
+    for k, w in want.items():
+        assert got[k].tobytes() == w.tobytes(), k
+    nu = dict(_leaves(jax.tree_util.tree_map(
+        np.asarray, serialization.to_state_dict(state[1][0].nu))))
+    got_nu = dict(_leaves(tio.to_jax_params(tr.opt.nu)))
+    for k, w in nu.items():
+        assert got_nu[k].tobytes() == w.tobytes(), k
