@@ -29,11 +29,28 @@ Phases, each of which must pass:
 7. print the kernels' JSON line, the ``nvidia-smi`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
+Flash attention (``model.flash_attention=1``) adds three phases:
+
+* ``[flash]``: the forward (with and without lse), the fused backward and
+  the two-pass pair against their plain versions at the path's shape
+  (B 4, T 1024, H 4, Dh 64, ragged lengths with a 0) and at T 8192, in bf16
+  and float32, within limits that a planted fault (each key mask one short)
+  must break; times, bounds and SDPA beside them; the ``auto`` policy's
+  readings (forward + backward under xla, fused and pallas);
+* ``[path-flash]``: the release with flash on transcribes the short clips of
+  ``[path]`` and 4 long clips (about 1000 frames, padded to 1024, rendered
+  in worker processes meanwhile), with one forward launch per encoder layer;
+  the transcripts must equal the CPU's (the long clips from the card's
+  ROIs); flash off beside it, reported;
+* ``[train-flash]``: fine-tuning on the long clips under each backward
+  policy with the launches of each step counted (they are the flash rows'
+  ``launches``), one float32 step's gradient of pallas and fused against
+  xla within limits that a planted fault must break, a fixed batch whose
+  loss falls, and peak memory with flash on and off.
+
 Without a CUDA device, or without the package beside it, it exits non-zero
-and prints no result. Float32 matrix products run in full float32
-(``torch.backends.cuda.matmul.allow_tf32 = False``); cuDNN keeps its default
-TF32 setting, which touches only float32 convolutions: the face detector's,
-which turn it off for themselves (``ops.roi.full_float32``).
+and prints no result. Float32 matrix products and cuDNN convolutions run in
+full float32 (TF32 off).
 """
 
 from __future__ import annotations
@@ -76,6 +93,55 @@ PARITY_LIMITS = {
     "grad_1_cos": 1e-4,     # 1 - cosine of the two gradients
     "flip_share": 5e-3,     # weights whose first Adam step (lr sign g) differs
 }
+
+# flash attention (universal4's encoder: tf_dim 256, 4 heads, Dh 64)
+FLASH_ON = {"model.flash_attention": 1}
+FLASH_H, FLASH_DH = 4, 64
+# (case, B, T, lengths): the path's shape, ragged with a 0; a long one
+FLASH_CASES = (("path", 4, 1024, (1024, 1000, 517, 0)),
+               ("long", 2, 8192, (8192, 6001)))
+FLASH_AUTO_T = (64, 128, 256, 512, 1024, 2048, 8192)
+# kernel vs plain, max|kernel - plain| / max|plain| of each output. Each
+# limit sits between the card's readings and a planted fault's (each key
+# mask one short): PERF.md section 6, flash attention
+FLASH_LIMITS = {"float32": 2e-5, "bfloat16": 1e-2}
+FLASH_REPLACES = {
+    "fwd": "lipreading_tpu/ops/flash_attention.py:74",
+    "fused": "lipreading_tpu/ops/flash_attention.py:326",
+    "dq": "lipreading_tpu/ops/flash_attention.py:228",
+    "dkv": "lipreading_tpu/ops/flash_attention.py:274",
+}
+FLASH_ROW = {"fwd": "flash_fwd", "fused": "flash_bwd_fused",
+             "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
+# one float32 step's gradient under pallas and fused against xla: limits
+# between the readings and a planted fault's (PERF.md section 6, flash
+# attention)
+FLASH_GRAD_LIMITS = {"grad_rel": 3e-5, "grad_1_cos": 1e-9}
+FLASH_TRAIN_STEPS = 3       # steps under each backward policy
+FLASH_FIXED_STEPS = 5       # steps on the fixed long batch
+# long clips: about 4 frames a character, padded to the encoder's 1024 rows
+LONG_TEXTS = (
+    "the quick brown fox jumps over the lazy dog while seven bright "
+    "students read their notes aloud in the quiet hall and the old clock on "
+    "the wall keeps ticking slowly as rain falls on the window and a small "
+    "bird sings its morning song near the door",
+    "we walked along the river after dinner and talked about the long "
+    "summer days when the fields were green and the children played near "
+    "the water until the sun went down behind the hills and the first stars "
+    "came out over the old stone bridge",
+    "please bring the blue book from the kitchen table and put it next to "
+    "the lamp in my room because i want to finish reading the last chapter "
+    "before the train leaves tomorrow morning at half past eight from the "
+    "station near the old market",
+    "every morning she opens the window to let the fresh air into the house "
+    "then she makes a cup of tea and sits by the garden where the roses grow "
+    "tall and the bees move from flower to flower in the warm light of the "
+    "early sun on a clear day",
+)
+LONG_SEED = 500
+LONG_BUCKET = 1024
+LONG_MAX_CHARS = 256        # whole transcripts as targets (sos and eos too)
+
 
 class SmokeError(RuntimeError):
     pass
@@ -303,12 +369,13 @@ def phase_kernels(frames, lengths, dev) -> list[dict]:
     return rows
 
 
-def load_port(device: str):
+def load_port(device: str, overrides: dict | None = None):
     from lipreading_tpu_torch.io import load_assets, load_release_model
     from lipreading_tpu_torch.ops.detector import params_to_torch
     from lipreading_tpu_torch.ops.ert import model_to_torch
 
-    model, cfg = load_release_model(RELEASE, device=device)
+    model, cfg = load_release_model(RELEASE, device=device,
+                                    overrides=overrides)
     det_np, ert_np = load_assets()
     return {"model": model, "cfg": cfg,
             "det": params_to_torch(det_np, device),
@@ -458,6 +525,26 @@ def phase_ctc_kernels(cfg) -> list[dict]:
     check(g_excess <= 0.0, f"CTC lattice grad disagrees: {g_err}")
     check(past == 0.0, "CTC lattice grad is not 0 past the input length")
 
+    # an input length above T counts as T, in the kernel and in its plain
+    # version alike (ROADMAP F2)
+    inl_over = inl.clone()
+    inl_over[1] = T + 7
+    nll_o, alpha_o = ctc.ctc_lattice_fwd(lp, skip, inl_over, lab)
+    grad_o = ctc.ctc_lattice_bwd(lp, skip, inl_over, lab, alpha_o, nll_o, g)
+    nll_ow, alpha_ow = ctc.ctc_lattice_fwd_reference(lp, skip, inl_over, lab)
+    grad_ow = ctc.ctc_lattice_bwd_reference(lp, skip, inl_over, lab,
+                                            alpha_ow, nll_ow, g)
+    torch.cuda.synchronize()
+    o_excess = ((grad_o - grad_ow).abs()
+                - (CTC_GRAD_ATOL + CTC_GRAD_RTOL * grad_ow.abs())).max().item()
+    o_live = grad_ow[1].abs().sum().item()
+    log(f"[ctc] input length {T + 7} > T = {T} on sample 1: grad max "
+        f"|kernel - plain| = {(grad_o - grad_ow).abs().max().item():.3g} "
+        f"(excess {o_excess:.3g}), plain grad of that sample sums to "
+        f"{o_live:.3g} in absolute value (0 would be the unclamped rule)")
+    check(o_excess <= 0.0, f"CTC lattice grad with a length above T: {o_excess}")
+    check(o_live > 0.0, "the plain backward zeroes a length above T")
+
     # yardstick: F.ctc_loss on the same log-probs (its own alpha and beta)
     logp = torch.log_softmax(c["logits"], dim=-1).transpose(0, 1).contiguous()
     logp_g = logp.clone().requires_grad_()
@@ -521,6 +608,506 @@ def phase_ctc_kernels(cfg) -> list[dict]:
              max_abs_err=g_err, ms=ms_b, plain_ms=plain_b, bound_ms=bb,
              bound_by=byb, library_ms=lib_fb),
     ]
+
+
+def flash_inputs(seed: int, B: int, T: int, lengths, dtype):
+    """q, k, v, dO [B, T, H, Dh] ~ N(0, 1) from a seed, cast to ``dtype``,
+    and int32 lengths, on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    shape = (B, T, FLASH_H, FLASH_DH)
+    xs = [torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32))
+          .to("cuda", dtype) for _ in range(4)]
+    return (*xs, torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+
+
+def rel_err(got, want) -> float:
+    """max|got - want| / max|want| (float64)."""
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max()
+                 / want.abs().max().clamp(min=1e-30))
+
+
+def lse_err(got, want, lengths) -> float:
+    """rel_err over the rows of samples with a key; the rows of a sample of
+    length 0 must be equal (-1e30 on both sides)."""
+    import torch
+
+    live = lengths > 0
+    if not torch.equal(got[~live], want[~live]):
+        return float("inf")
+    return rel_err(got[live], want[live])
+
+
+def flash_all(q, k, v, ln, g, bwd_in=None):
+    """Every flash kernel once -> {name: outputs}; the backwards take
+    ``bwd_in`` (g gated, delta, lse) when given, else the forward's."""
+    from lipreading_tpu_torch.ops import flash_attention as fa
+
+    out = fa.flash_fwd(q, k, v, ln)
+    out_l, lse_f = fa.flash_fwd(q, k, v, ln, return_lse=True)
+    gg, delta, lse = bwd_in or (*fa.bwd_inputs(out_l, g, ln), lse_f)
+    return {"fwd": (out,), "fwd_lse": (out_l, lse_f),
+            "fused": fa.flash_bwd_fused(q, k, v, ln, gg, delta, lse),
+            "dq": (fa.flash_bwd_dq(q, k, v, ln, gg, delta, lse),),
+            "dkv": fa.flash_bwd_dkv(q, k, v, ln, gg, delta, lse),
+            "_bwd_in": (gg, delta, lse)}
+
+
+def flash_errors(got: dict, q, k, v, ln) -> dict:
+    """Each kernel's output against its plain version on the same inputs:
+    {kernel: (relative error, max abs error)}."""
+    from lipreading_tpu_torch.ops import flash_attention as fa
+
+    want, lse_w = fa.flash_fwd_reference(q, k, v, ln, return_lse=True)
+    gg, delta, lse = got["_bwd_in"]
+    dq_w, dk_w, dv_w = fa.flash_bwd_fused_reference(q, k, v, ln, gg, delta,
+                                                    lse)
+    pairs = {"fwd": [(got["fwd"][0], want)],
+             "fwd_lse": [(got["fwd_lse"][0], want)],
+             "fused": list(zip(got["fused"], (dq_w, dk_w, dv_w))),
+             "dq": [(got["dq"][0], dq_w)],
+             "dkv": list(zip(got["dkv"], (dk_w, dv_w)))}
+    errs = {}
+    for name, ps in pairs.items():
+        errs[name] = (max(rel_err(a, b) for a, b in ps),
+                      max(float((a.double() - b.double()).abs().max())
+                          for a, b in ps))
+    errs["fwd_lse"] = (max(errs["fwd_lse"][0],
+                           lse_err(got["fwd_lse"][1], lse_w, ln)),
+                       errs["fwd_lse"][1])
+    return errs
+
+
+def flash_bound(name: str, B: int, T: int, lengths, elt: int):
+    """(ms, bound_by) of a flash kernel at these shapes: its matmul FLOPs
+    over the card's dense bf16 peak against its bytes over 3.35 TB/s. The
+    FLOPs are units x H Dh T sum(lengths) (queries all T rows, keys the
+    valid ones: the kernels skip key tiles past the length), in units of
+    B H T^2 Dh: 4 forward, 10 fused backward, 6 dq and 8 dk/dv (14 two-
+    pass)."""
+    from lipreading_tpu_torch.flops import device_peak_flops
+
+    units = {"fwd": 4, "fused": 10, "dq": 6, "dkv": 8}[name]
+    flops = units * FLASH_H * FLASH_DH * T * float(sum(lengths))
+    x = B * T * FLASH_H * FLASH_DH * elt        # one [B, T, H, Dh] tensor
+    rows = B * FLASH_H * T * 4                   # one float32 row vector
+    nbytes = {"fwd": 4 * x, "fused": 7 * x + 2 * rows, "dq": 5 * x + 2 * rows,
+              "dkv": 6 * x + 2 * rows}[name] + B * 4
+    t_ops = flops / device_peak_flops("bfloat16") * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_flash_kernels() -> list[dict]:
+    """The four flash kernels against their plain versions at the path's
+    shape and at a long one, in bf16 and float32, each limit checked against
+    the card's reading and a planted fault (the key mask one short); times,
+    bounds and SDPA as the yardstick at the path's shape; the auto policy's
+    readings (xla against fused, forward plus backward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from lipreading_tpu_torch.ops import flash_attention as fa
+
+    rows = {}
+    for case, B, T, lengths in FLASH_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype)[6:]
+            q, k, v, g, ln = flash_inputs(T + B, B, T, lengths, dtype)
+            got = flash_all(q, k, v, ln, g)
+            torch.cuda.synchronize()
+            errs = flash_errors(got, q, k, v, ln)
+            # planted fault: each sample's last valid key masked off
+            bad = flash_all(q, k, v, torch.clamp(ln - 1, min=0), g,
+                            got["_bwd_in"])
+            bad_errs = flash_errors(bad, q, k, v, ln)
+            lim = FLASH_LIMITS[dname]
+            zero = [b for b, n in enumerate(lengths) if n == 0]
+            for name, (e, e_abs) in errs.items():
+                log(f"[flash] {case} B={B} T={T} H={FLASH_H} Dh={FLASH_DH} "
+                    f"{dname} lengths {list(lengths)}: {name} max|kernel - "
+                    f"plain| / max|plain| = {e:.3g} (abs {e_abs:.3g}), limit "
+                    f"{lim:g}, planted fault {bad_errs[name][0]:.3g}")
+            for name, (e, e_abs) in errs.items():
+                check(e <= lim, f"flash {name} {case} {dname}: {e} > {lim}")
+                check(bad_errs[name][0] > lim,
+                      f"flash {name} {case} {dname}: the planted fault's "
+                      f"{bad_errs[name][0]} is within the limit {lim}")
+            outs = [x for key, xs in got.items() if key != "_bwd_in"
+                    for x in xs[:1 if key == "fwd_lse" else None]]
+            for x in outs:
+                check(bool(torch.isfinite(x.float()).all()),
+                      f"flash {case} {dname}: non-finite output")
+                for b in zero:
+                    check(x[b].abs().max().item() == 0.0,
+                          f"flash {case} {dname}: length 0 is not 0")
+            if dtype != torch.bfloat16:
+                continue
+            iters = 20 if T <= 1024 else 3
+            gg, delta, lse = got["_bwd_in"]
+            ms = {
+                "fwd": time_ms(lambda: fa.flash_fwd(q, k, v, ln), iters),
+                "fused": time_ms(lambda: fa.flash_bwd_fused(
+                    q, k, v, ln, gg, delta, lse), iters),
+                "dq": time_ms(lambda: fa.flash_bwd_dq(
+                    q, k, v, ln, gg, delta, lse), iters),
+                "dkv": time_ms(lambda: fa.flash_bwd_dkv(
+                    q, k, v, ln, gg, delta, lse), iters),
+            }
+            plain_fwd = time_ms(lambda: fa.flash_fwd_reference(q, k, v, ln),
+                                max(2, iters // 5))
+            plain_bwd = time_ms(lambda: fa.flash_bwd_fused_reference(
+                q, k, v, ln, gg, delta, lse), max(2, iters // 5))
+            # SDPA with the boolean key mask, [B, H, T, Dh]
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            mask = (torch.arange(T, device="cuda")[None, :]
+                    < ln[:, None])[:, None, None, :]
+            leaves = [x.detach().clone().requires_grad_() for x in (qt, kt, vt)]
+            gt = g.transpose(1, 2)
+
+            def sdpa_fwd_bwd():
+                for x in leaves:
+                    x.grad = None
+                F.scaled_dot_product_attention(*leaves, attn_mask=mask
+                                               ).backward(gt)
+
+            lib_f = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask), iters)
+            lib_fb = time_ms(sdpa_fwd_bwd, iters)
+            elt = q.element_size()
+            for name in ("fwd", "fused", "dq", "dkv"):
+                b_ms, b_by = flash_bound(name, B, T, lengths, elt)
+                plain = plain_fwd if name == "fwd" else plain_bwd
+                lib = lib_f if name == "fwd" else lib_fb
+                log(f"[flash] {case} bf16 {name}: kernel {ms[name]:.4f} ms, "
+                    f"plain {plain:.4f} ms, SDPA "
+                    f"{'forward' if name == 'fwd' else 'forward+backward'} "
+                    f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+                if case == "path":
+                    err = max(errs[name][1], errs["fwd_lse"][1]) \
+                        if name == "fwd" else errs[name][1]
+                    rows[name] = dict(
+                        name=FLASH_ROW[name], route="cuda",
+                        source="lipreading_tpu_torch/csrc/flash_attention.cu",
+                        replaces=FLASH_REPLACES[name], launches=0,
+                        max_abs_err=err, ms=ms[name], plain_ms=plain,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+            del q, k, v, g, got, bad, leaves
+            torch.cuda.empty_cache()
+
+    # the auto policy: forward + backward under xla, fused and pallas
+    line = []
+    for T in FLASH_AUTO_T:
+        q, k, v, g, ln = flash_inputs(T, 2, T, (T, 3 * T // 4), torch.bfloat16)
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        t = {}
+        for bwd in ("xla", "fused", "pallas"):
+            def step():
+                for x in leaves:
+                    x.grad = None
+                fa.flash_attention(*leaves, ln, bwd=bwd).backward(g)
+            t[bwd] = time_ms(step, 10 if T <= 2048 else 3)
+        line.append(f"T={T} xla {t['xla']:.4f} fused {t['fused']:.4f} "
+                    f"pallas {t['pallas']:.4f}")
+        del q, k, v, g, leaves
+        torch.cuda.empty_cache()
+    log(f"[flash] auto policy, B=2 H={FLASH_H} Dh={FLASH_DH} bf16, lengths "
+        f"(T, 3T/4), forward+backward ms: " + "; ".join(line)
+        + f" (auto takes fused from T={fa.AUTO_FUSED_MIN_T})")
+    return [rows[n] for n in ("fwd", "fused", "dq", "dkv")]
+
+
+def render_long(i: int):
+    """Long fixture clip ``i`` (LONG_TEXTS[i], about 4 frames a character)
+    -> (frames [T, H, W, 3] uint8, text). Runs in a worker process."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    from lipreading_tpu_torch.fixtures import make_clip
+
+    c = make_clip(LONG_SEED + i, text=LONG_TEXTS[i])
+    return c.frames, c.text
+
+
+def start_long_clips():
+    """Render the long clips in worker processes while the card works."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+
+    pool = cf.ProcessPoolExecutor(len(LONG_TEXTS),
+                                  mp_context=mp.get_context("spawn"))
+    return pool, [pool.submit(render_long, i) for i in range(len(LONG_TEXTS))]
+
+
+def long_clips(futures):
+    """The rendered long clips, zero-padded to LONG_BUCKET -> (frames
+    [B, T, H, W, 3] u8, lengths [B], texts)."""
+    import numpy as np
+
+    res = [f.result(timeout=600) for f in futures]
+    H, W = res[0][0].shape[1:3]
+    frames = np.zeros((len(res), LONG_BUCKET, H, W, 3), np.uint8)
+    lengths = np.zeros((len(res),), np.int32)
+    for b, (f, _) in enumerate(res):
+        check(len(f) <= LONG_BUCKET, f"long clip {b}: {len(f)} frames")
+        frames[b, :len(f)] = f
+        lengths[b] = len(f)
+    return frames, lengths, [t for _, t in res]
+
+
+def reset(wrappers):
+    for w in wrappers:
+        w.launches = 0
+
+
+def phase_path_flash(frames, lengths, gpu, long):
+    """Serving with model.flash_attention=1: the short clips of [path] and
+    the long clips, on the card and on the CPU, one forward kernel launch
+    per encoder layer per forward; flash off beside it."""
+    import torch
+
+    from lipreading_tpu_torch.infer import greedy_conf
+    from lipreading_tpu_torch.metrics import corpus_cer
+    from lipreading_tpu_torch.ops import flash_attention as fa
+    from lipreading_tpu_torch.ops.preprocess import preprocess_clips
+    from lipreading_tpu_torch.text import Vocab
+
+    on = load_port("cuda", FLASH_ON)
+    cpu_on = load_port("cpu", FLASH_ON)
+    layers = on["cfg"].model.tf_layers
+    run_path(frames, lengths, on)                   # warm-up
+    torch.cuda.synchronize()
+    reset(fa.WRAPPERS)
+    hyps, _ = run_path(frames, lengths, on)
+    n = fa.flash_fwd.launches
+    cpu_hyps, _ = run_path(frames, lengths, cpu_on)
+    off_hyps, _ = run_path(frames, lengths, gpu)
+    log(f"[path-flash] {len(hyps)} short clips x {frames.shape[1]} frames, "
+        f"flash on: {n} forward kernel launches ({layers} layers); card vs "
+        f"CPU transcripts {'equal' if hyps == cpu_hyps else 'DIFFER'}; flash "
+        f"off on the card {'equal' if hyps == off_hyps else 'differs'} "
+        f"(reported, not gated: at bf16 the two are different functions)")
+    check(n == layers, f"flash_fwd: {n} launches in one forward, want {layers}")
+    check(hyps == cpu_hyps, f"flash card {hyps} != CPU {cpu_hyps}")
+
+    lf, ll, lt = long
+    vocab = Vocab()
+
+    def texts(ids, cnt):
+        ids, cnt = ids.cpu().numpy(), cnt.cpu().numpy()
+        return [vocab.decode(ids[b, :cnt[b]]) for b in range(len(cnt))]
+
+    with torch.inference_mode():
+        rois = preprocess_clips(gpu["det"], gpu["ert"],
+                                torch.as_tensor(lf, device="cuda"),
+                                gpu["cfg"].preprocess)
+        lens = torch.as_tensor(ll, device="cuda")
+        out = {}
+        for name, port in (("on", on), ("off", gpu)):
+            greedy_conf(port["model"], port["cfg"], rois, lens)   # warm-up
+            torch.cuda.synchronize()
+            reset(fa.WRAPPERS)
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            ids, cnt, conf, enc = greedy_conf(port["model"], port["cfg"],
+                                              rois, lens)
+            torch.cuda.synchronize()
+            out[name] = dict(
+                texts=texts(ids, cnt), ms=(time.perf_counter() - t0) * 1e3,
+                launches=fa.flash_fwd.launches,
+                peak=torch.cuda.max_memory_allocated() - base)
+            check(bool(torch.isfinite(enc.float()).all()),
+                  f"long clips, flash {name}: non-finite encoder states")
+        t0 = time.perf_counter()
+        cids, ccnt, _, _ = greedy_conf(cpu_on["model"], cpu_on["cfg"],
+                                       rois.cpu(), lens.cpu())
+        cpu_s = time.perf_counter() - t0
+    cpu_texts = texts(cids, ccnt)
+    on_t, off_t = out["on"]["texts"], out["off"]["texts"]
+    for h, o, t in zip(on_t, off_t, lt):
+        log(f"[path-flash]   long: {h[:60]!r}... (flash off "
+            f"{'same' if h == o else 'differs'}) ref {t[:40]!r}...")
+    log(f"[path-flash] {len(lt)} long clips, lengths {ll.tolist()} padded to "
+        f"{LONG_BUCKET}, ROIs from the card: greedy_conf flash on "
+        f"{out['on']['ms']:.1f} ms, peak {out['on']['peak'] / 2**20:.1f} MiB "
+        f"above the resident state, {out['on']['launches']} forward kernel "
+        f"launches; flash off {out['off']['ms']:.1f} ms, peak "
+        f"{out['off']['peak'] / 2**20:.1f} MiB (host clock, synchronised); "
+        f"CER flash on {corpus_cer(on_t, lt):.4f}, off "
+        f"{corpus_cer(off_t, lt):.4f}; card vs CPU ({cpu_s:.1f} s) "
+        f"transcripts {'equal' if on_t == cpu_texts else 'DIFFER'}")
+    check(out["on"]["launches"] == layers,
+          f"long clips: {out['on']['launches']} forward launches")
+    check(out["off"]["launches"] == 0, "flash off launched the flash kernel")
+    check(on_t == cpu_texts, f"long clips: card {on_t} != CPU {cpu_texts}")
+    del on, cpu_on, rois
+
+
+def long_batch(long, cfg):
+    """The long clips as one training batch at LONG_BUCKET frames."""
+    from lipreading_tpu_torch.data.pipeline import FixtureVideoDataset
+
+    lf, ll, lt = long
+    ds = FixtureVideoDataset(0, seed=0, cfg=cfg.data)
+    ds.samples = [(lf[b, :ll[b]], lt[b]) for b in range(len(lt))]
+    return ds.batch(list(range(len(lt))), LONG_BUCKET)
+
+
+def flat_grads(tr, batch) -> tuple[float, "torch.Tensor"]:
+    """One step's loss and flat gradient (float64, host) without dropout
+    or jitter, no update."""
+    import torch
+
+    from lipreading_tpu_torch.data.pipeline import video_batch_to_device
+    from lipreading_tpu_torch.models.lipreader import compute_loss
+
+    mb = tr.model_batch(video_batch_to_device(batch, tr.device))
+    tr.model.zero_grad(set_to_none=True)
+    loss, _ = compute_loss(tr.model, tr.cfg, mb, train=True, gen=None)
+    loss.backward()
+    return loss.item(), torch.cat([p.grad.detach().double().cpu().reshape(-1)
+                                   for p in tr.model.parameters()])
+
+
+def grad_readings(a, b) -> dict:
+    """How far gradient ``a`` is from ``b``: ||a - b|| / ||b|| and
+    1 - cosine."""
+    import torch
+
+    return {"grad_rel": float((a - b).norm() / b.norm()),
+            "grad_1_cos": 1.0 - float(torch.nn.functional.cosine_similarity(
+                a, b, dim=0))}
+
+
+def phase_train_flash(gpu, long, rows):
+    """Fine-tuning with model.flash_attention=1 on the long clips: each
+    backward policy for a few steps with launch counts, one step's gradient
+    of pallas and fused against xla (float32) with a planted fault, a fixed
+    batch whose loss falls, peak memory with flash on and off."""
+    import torch
+
+    from lipreading_tpu_torch.ops import flash_attention as fa
+
+    over = {"model.flash_attention": 1, "data.max_chars": LONG_MAX_CHARS}
+    tree, base = release_train_cfg(**over)
+    batch = long_batch(long, base)
+    layers = base.model.tf_layers
+    log(f"[train-flash] batch {tuple(batch.frames.shape[:2])}, lengths "
+        f"{batch.frame_lengths.tolist()}, labels {batch.ctc_lengths.tolist()}"
+        f" chars; release {RELEASE} warm start, dropout "
+        f"{base.model.dropout}, roi_augment {base.train.roi_augment}, "
+        f"{base.model.dtype}")
+    totals = dict.fromkeys((w.__name__ for w in fa.WRAPPERS), 0)
+    for pol in ("xla", "pallas", "fused"):
+        cfg = base.override(**{"model.flash_bwd": pol})
+        tr = make_trainer(cfg, tree, gpu, "cuda", TRAIN_DIR)
+        tr.train_step(batch)                     # warm-up
+        torch.cuda.synchronize()
+        reset(fa.WRAPPERS)
+        ms, losses = [], []
+        for _ in range(FLASH_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            m = tr.train_step(batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append({k: float(v) for k, v in m.items()})
+        got = {w.__name__: w.launches for w in fa.WRAPPERS}
+        want = {"flash_fwd": layers,
+                "flash_bwd_fused": layers if pol == "fused" else 0,
+                "flash_bwd_dq": layers if pol == "pallas" else 0,
+                "flash_bwd_dkv": layers if pol == "pallas" else 0}
+        log(f"[train-flash] flash_bwd={pol}: {FLASH_TRAIN_STEPS} steps, "
+            f"losses {[round(x['loss'], 4) for x in losses]}, ms per step "
+            f"{[round(x, 1) for x in ms]} (host clock, synchronised), "
+            f"launches {got}")
+        for m in losses:
+            check(all(v == v and abs(v) != float("inf") for v in m.values()),
+                  f"flash_bwd={pol}: non-finite step metrics {m}")
+        for k, v in want.items():
+            check(got[k] == v * FLASH_TRAIN_STEPS,
+                  f"flash_bwd={pol}: {k} launched {got[k]} times in "
+                  f"{FLASH_TRAIN_STEPS} steps, want {v} per step")
+            totals[k] += got[k]
+        del tr
+    for r in rows:
+        if r["name"] in totals:
+            r["launches"] = totals[r["name"]]
+
+    # one step's gradient, float32 (where flash and the einsum attention
+    # are the same function): pallas and fused against xla, and a planted
+    # fault (the fused backward with each key mask one short)
+    f32 = {"model.dropout": 0.0, "train.roi_augment": 0.0,
+           "model.dtype": "float32"}
+    grads = {}
+    real_fused = fa.flash_bwd_fused
+
+    def short_mask(q, k, v, lengths, *rest):
+        return real_fused(q, k, v, torch.clamp(lengths - 1, min=0), *rest)
+
+    short_mask.launches = 0     # the wrapper counts under its module name
+
+    for name, pol in (("xla", "xla"), ("pallas", "pallas"),
+                      ("fused", "fused"), ("fault", "fused")):
+        cfg = base.override(**dict(f32, **{"model.flash_bwd": pol}))
+        tr = make_trainer(cfg, None, gpu, "cuda", TRAIN_DIR)
+        fa.flash_bwd_fused = short_mask if name == "fault" else real_fused
+        try:
+            grads[name] = flat_grads(tr, batch)
+        finally:
+            fa.flash_bwd_fused = real_fused
+        del tr
+    ref = grads["xla"][1]
+    read = {n: grad_readings(grads[n][1], ref)
+            for n in ("pallas", "fused", "fault")}
+    log(f"[train-flash] float32 step from the seeded initialisation, loss "
+        f"{grads['xla'][0]:.6f} (xla) {grads['pallas'][0]:.6f} (pallas) "
+        f"{grads['fused'][0]:.6f} (fused)")
+    for k, lim in FLASH_GRAD_LIMITS.items():
+        log(f"[train-flash]   {k} against xla: pallas {read['pallas'][k]:.4g}"
+            f", fused {read['fused'][k]:.4g}, limit {lim:g}, planted fault "
+            f"{read['fault'][k]:.4g}")
+    for k, lim in FLASH_GRAD_LIMITS.items():
+        for n in ("pallas", "fused"):
+            check(read[n][k] <= lim, f"flash_bwd={n} grads vs xla: {k} "
+                  f"{read[n][k]} > {lim}")
+        check(read["fault"][k] > lim, f"the planted fault's {k} "
+              f"{read['fault'][k]} is within the limit {lim}")
+
+    # a fixed batch from the seeded initialisation: its loss must fall
+    cfg = base.override(**{"model.flash_bwd": "fused",
+                           "train.warmup_steps": 0})
+    tr = make_trainer(cfg, None, gpu, "cuda", TRAIN_DIR)
+    before = det_loss(tr, batch)
+    seen = [float(tr.train_step(batch)["loss"])
+            for _ in range(FLASH_FIXED_STEPS)]
+    after = det_loss(tr, batch)
+    log(f"[train-flash] fixed batch, flash_bwd=fused, seeded "
+        f"initialisation: loss without dropout {before:.4f} -> {after:.4f} "
+        f"after {FLASH_FIXED_STEPS} steps; step losses "
+        + " ".join(f"{v:.4f}" for v in seen))
+    check(after < before, f"flash fixed-batch loss did not fall: {before} -> "
+          f"{after}")
+    del tr
+
+    # peak device memory of one step, flash on (fused) and off
+    peak = {}
+    for name, o in (("on", {"model.flash_bwd": "fused"}),
+                    ("off", {"model.flash_attention": 0})):
+        tr = make_trainer(base.override(**o), tree, gpu, "cuda", TRAIN_DIR)
+        tr.train_step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        tr.train_step(batch)
+        torch.cuda.synchronize()
+        peak[name] = (torch.cuda.max_memory_allocated() - base_mem) / 2**20
+        del tr
+    log(f"[train-flash] peak device memory of one step above the resident "
+        f"state: flash on {peak['on']:.1f} MiB, off {peak['off']:.1f} MiB")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
 
 
 def release_train_cfg(**overrides):
@@ -765,11 +1352,13 @@ def main() -> int:
         log(f"chip_smoke: FAIL: the port is not beside this script: {e}")
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     log(f"[setup] torch {torch.__version__} CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}; "
-        f"matmul TF32 off, cuDNN TF32 {torch.backends.cudnn.allow_tf32} "
-        "(the detector turns it off for its own convolutions)")
+        "matmul and cuDNN TF32 off")
+    pool = None
     try:
+        pool, long_futures = start_long_clips()
         phase_build()
         smi = nvidia_smi_line()
         log(f"[card] {smi}")
@@ -777,8 +1366,15 @@ def main() -> int:
         gpu = load_port("cuda")
         rows = phase_kernels(frames, lengths, gpu)
         rows += phase_ctc_kernels(gpu["cfg"])
+        rows += phase_flash_kernels()
         phase_path(frames, lengths, texts, gpu, rows)
+        t0 = time.perf_counter()
+        long = long_clips(long_futures)
+        log(f"[path-flash] long clips rendered in worker processes "
+            f"(waited {time.perf_counter() - t0:.1f} s)")
+        phase_path_flash(frames, lengths, gpu, long)
         phase_train(gpu, rows)
+        phase_train_flash(gpu, long, rows)
         phase_train_parity(gpu)
     except Exception as e:  # every phase failure ends here, without a result
         import traceback
@@ -786,6 +1382,9 @@ def main() -> int:
         traceback.print_exc()
         log(f"chip_smoke: FAIL: {type(e).__name__}: {e}")
         return 1
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": rows}))
     log(smi)

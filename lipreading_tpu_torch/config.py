@@ -76,8 +76,9 @@ class ModelConfig:
     dropout: float = 0.1
     vocab_size: int = 31
     dtype: str = "bfloat16"       # activation dtype; params stay fp32
-    # flash attention in the encoder (a later slice of the port) and its
-    # backward policy
+    # flash attention in the encoder's self-attention (O(T * Dh) memory,
+    # ops/flash_attention.py) and its backward: "auto", "xla", "pallas"
+    # (the two-pass kernels) or "fused"
     flash_attention: bool = False
     flash_bwd: str = "auto"
 

@@ -239,11 +239,16 @@ def msgpack_restore(data: bytes):
     return out
 
 
-def load_release(name: str, assets_dir: str | None = None):
-    """``assets/<name>.msgpack`` + ``<name>.json`` -> (numpy tree, Config)."""
+def load_release(name: str, assets_dir: str | None = None,
+                 overrides: dict | None = None):
+    """``assets/<name>.msgpack`` + ``<name>.json`` -> (numpy tree, Config);
+    ``overrides`` are dotted config fields applied to the release's config
+    (``{"model.flash_attention": 1}``)."""
     d = assets_dir or ASSETS_DIR
     with open(os.path.join(d, f"{name}.json")) as f:
         cfg = from_dict(json.load(f)["config"])
+    if overrides:
+        cfg = cfg.override(**overrides)
     with open(os.path.join(d, f"{name}.msgpack"), "rb") as f:
         tree = msgpack_restore(f.read())
     return tree, cfg
@@ -265,8 +270,8 @@ def from_jax_params(tree, cfg: Config) -> "OrderedDict[str, torch.Tensor]":
     (dense ``w`` is [in, out], conv ``w`` is DHWIO), so a leaf's path joined
     with "." is its ``state_dict`` key. Lists (from ``init_model``) and
     dicts keyed "0", "1", ... (from a msgpack release) give the same keys.
-    Leaves of the attention decoder are dropped: that decoder is not ported
-    yet. Leaves may be numpy arrays or anything ``np.asarray`` reads.
+    Every leaf is kept, the attention decoder's included. Leaves may be
+    numpy arrays or anything ``np.asarray`` reads.
     """
     if cfg.encoder != "transformer" or cfg.model.frontend != "patchify":
         raise NotImplementedError(
@@ -308,9 +313,11 @@ def to_jax_params(state: "dict[str, torch.Tensor]") -> dict:
 
 def load_release_model(name: str = "transformer_hybrid_universal4",
                        device: str | torch.device = "cuda",
-                       assets_dir: str | None = None):
-    """A release checkpoint as a ``LipReader`` on ``device`` -> (model, cfg)."""
-    tree, cfg = load_release(name, assets_dir)
+                       assets_dir: str | None = None,
+                       overrides: dict | None = None):
+    """A release checkpoint as a ``LipReader`` on ``device`` -> (model, cfg);
+    ``overrides`` as in ``load_release``."""
+    tree, cfg = load_release(name, assets_dir, overrides)
     model = LipReader(cfg)
     model.load_state_dict(from_jax_params(tree, cfg))
     return model.to(device).eval(), cfg

@@ -44,6 +44,16 @@ SIGNATURES = {
     # lp_ext, skip, input_lengths, label_lengths, alpha, nll, g, grad,
     # B, T, S, stream
     "ctc_lattice_bwd": [c_void_p] * 8 + [c_int] * 3 + [c_void_p],
+    # q, k, v, lengths, out, lse (or NULL), B, T, H, D, bf16, scale, stream
+    "flash_fwd": [c_void_p] * 6 + [c_int] * 5 + [c_float, c_void_p],
+    # q, k, v, lengths, dout, delta, lse, dq, B, T, H, D, bf16, scale, stream
+    "flash_bwd_dq": [c_void_p] * 8 + [c_int] * 5 + [c_float, c_void_p],
+    # q, k, v, lengths, dout, delta, lse, dk, dv, B, T, H, D, bf16, scale,
+    # stream
+    "flash_bwd_dkv": [c_void_p] * 9 + [c_int] * 5 + [c_float, c_void_p],
+    # q, k, v, lengths, dout, delta, lse, dq_ws, dq, dk, dv, B, T, H, D,
+    # bf16, scale, stream
+    "flash_bwd_fused": [c_void_p] * 11 + [c_int] * 5 + [c_float, c_void_p],
 }
 
 

@@ -97,11 +97,15 @@ def encode(model: LipReader, cfg: Config, rois: torch.Tensor,
            frame_lengths: torch.Tensor, dtype: torch.dtype | None = None,
            gen: torch.Generator | None = None):
     """[B, T, R, R] + lengths [B] -> [B, T, D] encoder states; ``gen``
-    enables dropout (training), None is deterministic."""
+    enables dropout (training), None is deterministic. The encoder's
+    attention takes the flash kernels when ``cfg.model.flash_attention``
+    is set, with the backward ``cfg.model.flash_bwd``."""
     dtype = dtype or _act_dtype(cfg)
     rate = cfg.model.dropout
     feats = model.frontend(rois, dtype, gen, rate)
-    return model.encoder(feats, frame_lengths, dtype, gen, rate)
+    return model.encoder(feats, frame_lengths, dtype, gen, rate,
+                         flash=cfg.model.flash_attention,
+                         flash_bwd=cfg.model.flash_bwd)
 
 
 def ctc_logits(model: LipReader, enc: torch.Tensor,

@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lipreading_tpu_torch.ops.roi import full_float32
+
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
           dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -88,7 +90,9 @@ def conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         pads.extend(_same_pads(x.shape[axis], w.shape[axis - 1],
                                strides[axis - 1]))
     xc = F.pad(x.permute(0, 4, 1, 2, 3), pads)
-    y = F.conv3d(xc, w.permute(4, 3, 0, 1, 2), stride=tuple(strides))
+    # a float32 convolution in full float32, whatever cuDNN's TF32 default
+    with full_float32():
+        y = F.conv3d(xc, w.permute(4, 3, 0, 1, 2), stride=tuple(strides))
     return y.permute(0, 2, 3, 4, 1) + b
 
 

@@ -1,9 +1,13 @@
-"""Transformer encoder and decoder (counterpart of ``mha``, ``mlp``, the
-non-flash branch of ``encoder_apply`` and the teacher-forced
-``decoder_apply`` in ``lipreading_tpu/models/transformer.py``).
+"""Transformer encoder and decoder (counterpart of ``mha``, ``mha_flash``,
+``mlp``, ``encoder_apply`` and the teacher-forced ``decoder_apply`` in
+``lipreading_tpu/models/transformer.py``).
 
 Pre-LN blocks; attention scores in the activation type, cast to float32 for
-the ``-1e30`` mask and the softmax, cast back for the weighted sum. The
+the ``-1e30`` mask and the softmax, cast back for the weighted sum. With
+``flash`` (``cfg.model.flash_attention``) the encoder's self-attention core
+runs through the flash kernels instead (``ops/flash_attention.py``: scores
+in float32 from the upcast inputs, no [B, H, T, T] buffer), with the
+backward that ``flash_bwd`` picks; the projections are the same. The
 positional tables ``pos`` are parameters (trained and weight-decayed, as in
 the JAX package). Dropout, drawn from an explicit generator, follows every
 residual branch in training. The decoder's incremental step with a KV cache
@@ -27,6 +31,7 @@ from lipreading_tpu_torch.models.nn import (
     dropout,
     length_mask,
 )
+from lipreading_tpu_torch.ops.flash_attention import check_bwd, flash_attention
 
 
 def sinusoidal_positions(max_len: int, dim: int) -> np.ndarray:
@@ -57,6 +62,22 @@ class MHA(nn.Module):
         w = torch.softmax(scores, dim=-1).to(q.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, Tq, D)
         return self.o(out, dtype)
+
+
+def mha_flash(p: MHA, x: torch.Tensor, lengths: torch.Tensor, heads: int,
+              dtype: torch.dtype | None = None,
+              bwd: str = "auto") -> torch.Tensor:
+    """Encoder self-attention through the flash kernels: ``MHA``'s
+    projections around ``flash_attention``'s core; ``bwd`` is its backward
+    policy (``cfg.model.flash_bwd``)."""
+    B, T, D = x.shape
+    Dh = D // heads
+    q = p.q(x, dtype).reshape(B, T, heads, Dh)
+    k = p.k(x, dtype).reshape(B, T, heads, Dh)
+    v = p.v(x, dtype).reshape(B, T, heads, Dh)
+    lengths = lengths.to(device=x.device, dtype=torch.int32)
+    out = flash_attention(q, k, v, lengths, bwd=bwd).reshape(B, T, D)
+    return p.o(out, dtype)
 
 
 class MLP(nn.Module):
@@ -96,16 +117,21 @@ def encoder_apply(p: "TransformerEncoder", x: torch.Tensor,
                   lengths: torch.Tensor, heads: int,
                   dtype: torch.dtype | None = None,
                   gen: torch.Generator | None = None,
-                  rate: float = 0.0) -> torch.Tensor:
+                  rate: float = 0.0, flash: bool = False,
+                  flash_bwd: str = "auto") -> torch.Tensor:
     """[B, T, in] -> [B, T, tf_dim]; self-attention masked to valid frames;
-    dropout on both residual branches when ``gen`` is given."""
+    dropout on both residual branches when ``gen`` is given. ``flash``
+    streams the attention core through the flash kernels, ``flash_bwd``
+    picks their backward."""
     B, T, _ = x.shape
     h = p.proj(x, dtype)
     h = h + p.pos[:T][None].to(h.dtype)
     mask = length_mask(lengths, T)[:, None, None, :]
     for lp in p.layers:
         hn = lp.ln1(h)
-        h = h + dropout(lp.attn(hn, hn, mask, heads, dtype), rate, gen)
+        attn = (mha_flash(lp.attn, hn, lengths, heads, dtype, flash_bwd)
+                if flash else lp.attn(hn, hn, mask, heads, dtype))
+        h = h + dropout(attn, rate, gen)
         h = h + dropout(lp.mlp(lp.ln2(h), dtype), rate, gen)
     return p.ln_out(h)
 
@@ -139,18 +165,17 @@ def decoder_apply(p: "TransformerDecoder", targets_in: torch.Tensor,
 class TransformerEncoder(nn.Module):
     def __init__(self, cfg: ModelConfig, in_dim: int):
         super().__init__()
-        if cfg.flash_attention:
-            raise NotImplementedError(
-                "flash attention is a later slice of the port")
+        check_bwd(cfg.flash_bwd)
         self.cfg = cfg
         self.proj = Dense(in_dim, cfg.tf_dim)
         self.layers = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.tf_layers))
         self.ln_out = LayerNorm(cfg.tf_dim)
         self.pos = nn.Parameter(torch.from_numpy(sinusoidal_positions(1024, cfg.tf_dim)))
 
-    def forward(self, x, lengths, dtype=None, gen=None, rate=0.0):
+    def forward(self, x, lengths, dtype=None, gen=None, rate=0.0,
+                flash=False, flash_bwd="auto"):
         return encoder_apply(self, x, lengths, self.cfg.tf_heads, dtype, gen,
-                             rate)
+                             rate, flash, flash_bwd)
 
 
 class TransformerDecoder(nn.Module):

@@ -112,11 +112,14 @@ def ctc_lattice_fwd_reference(lp_ext, skip, input_lengths, label_lengths):
 
 def ctc_lattice_bwd_reference(lp_ext, skip, input_lengths, label_lengths,
                               alpha, nll, g):
-    """Plain version of the backward kernel: d(sum g * nll) / d lp_ext."""
+    """Plain version of the backward kernel: d(sum g * nll) / d lp_ext.
+
+    Input lengths are clamped to [0, T], as the kernel and the JAX package's
+    scan loss take them: for a length above T the last frame is terminal."""
     B, T, S = lp_ext.shape
     idx = torch.arange(S, device=lp_ext.device)[None]
     lab = label_lengths.long()[:, None]
-    inlen = input_lengths.long()[:, None]
+    inlen = torch.clamp(input_lengths.long(), 0, T)[:, None]
     last = torch.clamp(2 * lab, max=S - 1)
     terminal = torch.where((idx == last) | ((idx == last - 1) & (lab > 0)),
                            0.0, NEG_INF)

@@ -12,7 +12,9 @@ AdamW, ``steps`` times (default ``train.total_steps``), then a checkpoint in
 ``assets/`` or from a checkpoint ``.msgpack`` (fresh optimizer, step 0);
 ``resume=1`` continues from the latest checkpoint in ``workdir``. Any dotted
 config field can be overridden (``train.learning_rate=1e-4``). It runs on
-the GPU unless ``device=cpu`` is given.
+the GPU unless ``device=cpu`` is given. ``model.flash_attention=1`` runs the
+encoder's attention through the flash kernels, ``model.flash_bwd=auto|xla|
+pallas|fused`` picks their backward.
 
 Not ported yet, each refused with its slice: ``fused=0`` (the dataview
 path), ``tracked``, ``preprocess.landmarker=conv``, ``variation`` and

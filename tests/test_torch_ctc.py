@@ -101,6 +101,25 @@ def test_lattice_loss_matches_pallas_interpret(case):
         assert np.abs(x.grad.numpy()[b, inl[b]:]).sum() == 0.0
 
 
+def test_lattice_backward_clamps_input_length_above_t():
+    """An input length above T counts as T, as the kernel and the scan loss
+    take it: the lattice loss's plain backward gives the gradient of
+    ``jax.grad`` of the scan ``ctc_loss`` (not zeros), and the plain forward
+    the scan's value."""
+    logits, labels, inl, lab = _case(4, in_lens=[20, 27, 14, 21],
+                                     lab_lens=[6, 4, 2, 0])
+    ja = _jax_args(logits, labels, inl, lab)
+    want = np.asarray(jctc.ctc_loss(*ja))
+    gw = np.asarray(jax.grad(lambda z: jctc.ctc_loss(z, *ja[1:]).sum())(ja[0]))
+    x = torch.from_numpy(logits).requires_grad_()
+    got = tctc.ctc_loss_lattice(x, *_torch_args(logits, labels, inl, lab)[1:])
+    np.testing.assert_allclose(got.detach().numpy(), want, **VAL)
+    got.sum().backward()
+    np.testing.assert_allclose(x.grad.numpy(), gw, **GRAD)
+    for b in (1, 3):                    # the long samples' gradients live
+        assert np.abs(x.grad.numpy()[b]).sum() > 0.1
+
+
 def test_lattice_kernels_plain_versions_match_pallas_kernels():
     """alpha, nll and d nll / d lp_ext of the kernels' plain versions against
     the Pallas forward and backward kernels (interpret mode) on the same

@@ -12,6 +12,7 @@ import torch
 
 from lipreading_tpu_torch import kernels
 from lipreading_tpu_torch.ops import ctc, decode, roi
+from lipreading_tpu_torch.ops import flash_attention as fa
 
 
 @pytest.fixture(scope="module")
@@ -152,6 +153,25 @@ def test_ctc_loss_lattice_grads_match_plain_ctc_loss(cuda):
 
 
 @pytest.mark.cuda
+def test_ctc_lattice_bwd_clamps_input_length_above_t(cuda):
+    """An input length above T counts as T in the kernel and in its plain
+    version alike: the same gradient (rtol 1e-3 / atol 1e-5), not zeros."""
+    lp, skip, inl, lab, _, _ = _lattice_case(11, 4, 20, 12, 6)
+    inl = torch.tensor([20, 27, 14, 21], dtype=torch.int32)
+    nll_w, alpha_w = ctc.ctc_lattice_fwd_reference(lp, skip, inl, lab)
+    g = torch.linspace(0.5, 1.5, 4)
+    grad_w = ctc.ctc_lattice_bwd_reference(lp, skip, inl, lab, alpha_w,
+                                           nll_w, g)
+    args = [x.to(cuda) for x in (lp, skip, inl, lab)]
+    nll, alpha = ctc.ctc_lattice_fwd(*args)
+    grad = ctc.ctc_lattice_bwd(*args, alpha, nll, g.to(cuda))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(nll.cpu(), nll_w, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(grad.cpu(), grad_w, rtol=1e-3, atol=1e-5)
+    assert grad_w[1].abs().sum() > 0.1 and grad_w[3].abs().sum() > 0.1
+
+
+@pytest.mark.cuda
 def test_ctc_lattice_rejects_mixed_devices(cuda):
     lp, skip, inl, lab, _, _ = _lattice_case(0, 2, 8, 5, 2)
     with pytest.raises(ValueError):
@@ -166,3 +186,90 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(kernels, "BUILD_ROOT", str(tmp_path / "build"))
     with pytest.raises(RuntimeError, match="nvcc"):
         kernels.build()
+
+
+# flash attention: max|kernel - plain| / max|plain| per output. float32:
+# 2e-5, the JAX tests' limit (the kernels sum in other orders, and the fused
+# backward adds dq with atomics in an order that changes from run to run);
+# bf16: 1e-2, the outputs are float32 sums rounded to bf16 on both sides, so
+# they differ by at most about one bf16 ulp (2^-8 of the largest values)
+FLASH_REL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+FLASH_CASES = [(2, 40, 2, 16, [40, 23]), (1, 13, 3, 8, [11]),
+               (3, 130, 4, 64, [130, 64, 0]), (2, 77, 2, 100, [77, 5]),
+               (4, 1024, 4, 64, [1024, 1000, 517, 0])]
+
+
+def _flash_case(seed, B, T, H, D, lengths, dtype):
+    rng = np.random.default_rng(seed)
+
+    def mk():
+        return torch.from_numpy(
+            rng.normal(0, 1, (B, T, H, D)).astype(np.float32)).to(dtype)
+
+    return mk(), mk(), mk(), mk(), torch.tensor(lengths, dtype=torch.int32)
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp(min=1e-30)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,D,lengths", FLASH_CASES)
+def test_flash_kernels_match_plain(cuda, dtype, B, T, H, D, lengths):
+    """The forward (with and without lse), the fused backward and the
+    two-pass pair against their plain versions on the same inputs; one
+    launch each; exact zeros for a sample of length 0."""
+    q, k, v, g, ln = (x.to(cuda) for x in _flash_case(T + D, B, T, H, D,
+                                                      lengths, dtype))
+    before = [w.launches for w in fa.WRAPPERS]
+    out = fa.flash_fwd(q, k, v, ln)
+    out2, lse = fa.flash_fwd(q, k, v, ln, return_lse=True)
+    want, lse_w = fa.flash_fwd_reference(q, k, v, ln, return_lse=True)
+    gg, delta = fa.bwd_inputs(out2, g, ln)
+    fused = fa.flash_bwd_fused(q, k, v, ln, gg, delta, lse)
+    dq = fa.flash_bwd_dq(q, k, v, ln, gg, delta, lse)
+    dkv = fa.flash_bwd_dkv(q, k, v, ln, gg, delta, lse)
+    grads_w = fa.flash_bwd_fused_reference(q, k, v, ln, gg, delta, lse)
+    torch.cuda.synchronize()
+    assert [w.launches for w in fa.WRAPPERS] == [b + n for b, n in
+                                                 zip(before, (2, 1, 1, 1))]
+    tol = FLASH_REL[dtype]
+    assert torch.equal(out, out2)
+    assert _rel(out, want) <= tol
+    assert _rel(lse, lse_w) <= 2e-5
+    for got, w in zip((*fused, dq, *dkv), (*grads_w, *grads_w)):
+        assert torch.isfinite(got.float()).all()
+        assert _rel(got, w) <= tol
+    for b, n in enumerate(lengths):
+        if n == 0:
+            for x in (out, *fused, dq, *dkv):
+                assert x[b].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bwd", ["xla", "pallas", "fused"])
+def test_flash_attention_grads_match_plain_on_the_cpu(cuda, bwd):
+    """The autograd function on the card against the same function on the
+    CPU (plain versions there), float32: values and grads within 2e-5 of the
+    largest."""
+    q, k, v, g, ln = _flash_case(3, 2, 200, 4, 64, [200, 131],
+                                 torch.float32)
+    res = []
+    for dev in ("cpu", cuda):
+        leaves = [x.detach().to(dev).requires_grad_() for x in (q, k, v)]
+        out = fa.flash_attention(*leaves, ln.to(dev), bwd=bwd)
+        out.backward(g.to(dev))
+        res.append([out.detach().cpu()] + [x.grad.cpu() for x in leaves])
+    for a, b in zip(res[1], res[0]):
+        assert _rel(a, b) <= 2e-5
+
+
+@pytest.mark.cuda
+def test_flash_rejects_mixed_devices(cuda):
+    q, k, v, _, ln = _flash_case(0, 1, 8, 1, 8, [8], torch.float32)
+    with pytest.raises(ValueError):
+        fa.flash_fwd(q.to(cuda), k.to(cuda), v.to(cuda), ln)
+    with pytest.raises(TypeError):
+        fa.flash_fwd(*(x.to(cuda) for x in (q, k, v)), ln.to(cuda)[:0])

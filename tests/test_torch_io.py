@@ -151,6 +151,9 @@ def test_port_imports_nothing_of_jax():
     JAX package module, and no kernel source includes PyTorch's headers."""
     srcs = list(_port_sources())
     assert len(srcs) > 10
+    names = {os.path.relpath(p, REPO) for p in srcs}
+    assert {"lipreading_tpu_torch/ops/flash_attention.py",
+            "lipreading_tpu_torch/csrc/flash_attention.cu"} <= names
     for path in srcs:
         with open(path) as f:
             text = f.read()

@@ -180,3 +180,28 @@ def test_later_slices_raise_not_implemented():
                                           "frontend": "conv3d"})})
     with pytest.raises(NotImplementedError):
         tlr.LipReader(c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3d_runs_in_full_float32(monkeypatch, dtype):
+    """The model's convolutions (the patchify stem's) run with cuDNN's TF32
+    off, whatever the caller allowed, as the detector's do; the caller's
+    setting comes back after the call."""
+    seen = []
+    real = tnn.F.conv3d
+
+    def spy(*a, **kw):
+        seen.append(torch.backends.cudnn.allow_tf32)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tnn.F, "conv3d", spy)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        x = torch.ones((1, 2, 4, 4, 3), dtype=dtype)
+        w = torch.ones((3, 3, 3, 3, 5))
+        tnn.conv3d(x, w, torch.zeros(5), dtype=dtype)
+        assert seen == [False]
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
