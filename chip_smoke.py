@@ -6,7 +6,10 @@
 Phases, each of which must pass:
 
 1. build the CUDA kernels of ``lipreading_tpu_torch/csrc`` (one ``nvcc``
-   call, cached by a hash of the sources) and print the build seconds;
+   per source, all started together, then one link; cached by a hash of
+   the sources), print the build seconds, each kernel's registers and
+   spills (the Hopper flash kernels must not spill) and how many ``HGMMA``
+   and ``UTMALDG`` instructions the library holds (both must be > 0);
 2. print the card's name and power limit as ``nvidia-smi`` reports them;
 3. hold every kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, and time the kernel, the plain version and
@@ -33,10 +36,13 @@ Flash attention (``model.flash_attention=1``) adds three phases:
 
 * ``[flash]``: the forward (with and without lse), the fused backward and
   the two-pass pair against their plain versions at the path's shape
-  (B 4, T 1024, H 4, Dh 64, ragged lengths with a 0) and at T 8192, in bf16
+  (B 4, T 1024, H 4, Dh 64, ragged lengths with a 0), at T 8192 and at a
+  ragged B 3, T 200, H 2, Dh 100 (lengths 200, 1, 0; not timed), in bf16
   and float32, within limits that a planted fault (each key mask one short)
-  must break; times, bounds and SDPA beside them; the ``auto`` policy's
-  readings (forward + backward under xla, fused and pallas);
+  must break; each kernel's own device time (CUDA events around its bare
+  C entry), its TFLOP/s and share of the bound, the wrapper's time, the
+  plain version's and SDPA's beside them; the ``auto`` policy's readings
+  (forward + backward under xla, fused and pallas);
 * ``[path-flash]``: the release with flash on transcribes the short clips of
   ``[path]`` and 4 long clips (about 1000 frames, padded to 1024, rendered
   in worker processes meanwhile), with one forward launch per encoder layer;
@@ -97,9 +103,13 @@ PARITY_LIMITS = {
 # flash attention (universal4's encoder: tf_dim 256, 4 heads, Dh 64)
 FLASH_ON = {"model.flash_attention": 1}
 FLASH_H, FLASH_DH = 4, 64
-# (case, B, T, lengths): the path's shape, ragged with a 0; a long one
-FLASH_CASES = (("path", 4, 1024, (1024, 1000, 517, 0)),
-               ("long", 2, 8192, (8192, 6001)))
+# (case, B, T, H, Dh, lengths, timed): the path's shape, ragged with a 0; a
+# long one; and, for correctness only, a ragged one whose head dim takes
+# the wrapper's padded copy (200-byte rows) and whose T ends mid-tile, with
+# samples of length 1 and 0
+FLASH_CASES = (("path", 4, 1024, FLASH_H, FLASH_DH, (1024, 1000, 517, 0), True),
+               ("long", 2, 8192, FLASH_H, FLASH_DH, (8192, 6001), True),
+               ("ragged", 3, 200, 2, 100, (200, 1, 0), False))
 FLASH_AUTO_T = (64, 128, 256, 512, 1024, 2048, 8192)
 # kernel vs plain, max|kernel - plain| / max|plain| of each output. Each
 # limit sits between the card's readings and a planted fault's (each key
@@ -113,9 +123,20 @@ FLASH_REPLACES = {
 }
 FLASH_ROW = {"fwd": "flash_fwd", "fused": "flash_bwd_fused",
              "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
+# the source of each row's (bf16) kernel
+FLASH_SOURCE = {
+    "fwd": "lipreading_tpu_torch/csrc/flash_attention_sm90.cu",
+    "fused": "lipreading_tpu_torch/csrc/flash_attention_sm90.cu",
+    "dq": "lipreading_tpu_torch/csrc/flash_attention.cu",
+    "dkv": "lipreading_tpu_torch/csrc/flash_attention.cu",
+}
 # one float32 step's gradient under pallas and fused against xla: limits
 # between the readings and a planted fault's (PERF.md section 6, flash
 # attention)
+# registers a thread of the Hopper fused backward is built for: its
+# setmaxnreg moves (168 - 24) x 128 to the consumers, 256 x (240 - 168)
+# (csrc/flash_attention_sm90.cu, kBwdRegs)
+SM90_BWD_REGS = 168
 FLASH_GRAD_LIMITS = {"grad_rel": 3e-5, "grad_1_cos": 1e-9}
 FLASH_TRAIN_STEPS = 3       # steps under each backward policy
 FLASH_FIXED_STEPS = 5       # steps on the fixed long batch
@@ -202,17 +223,75 @@ def fixture_batch():
     return frames, lengths, [c.text for c in clips]
 
 
+def sass_counts(path: str) -> dict:
+    """How many tensor-core (HGMMA) and TMA-load (UTMALDG) instructions
+    ``cuobjdump --dump-sass`` finds in the library."""
+    from lipreading_tpu_torch import kernels
+
+    tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "--dump-sass", path], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
+    return {op: sum(line.split()[1:2] == [op] or f" {op}." in line
+                    or f" {op} " in line for line in out.stdout.splitlines())
+            for op in ("HGMMA", "UTMALDG")}
+
+
+def kernel_name(mangled: str) -> str:
+    """``name<template args>`` of a kernel from its mangled name."""
+    import re
+
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(m.start(), m.end()):
+            n = int(mangled[i:m.end()])
+            name = mangled[m.end():m.end() + n]
+            if name.endswith("_kernel"):
+                t = re.match(r"I(\w+?)E", mangled[m.end() + n:])
+                return name + (f"<{t.group(1)}>" if t else "")
+    return mangled
+
+
 def phase_build():
+    """Build, print each kernel's registers and spills as ptxas reports them
+    (the Hopper flash kernels must not spill) and the SASS counts."""
+    import re
+
     from lipreading_tpu_torch import kernels
 
     t0 = time.perf_counter()
     kernels.lib()
     log(f"[build] nvcc + load: {time.perf_counter() - t0:.2f} s "
-        f"(nvcc alone {kernels.STATE.build_seconds:.2f} s; 0 = cached) "
-        f"-> {kernels.STATE.path}")
+        f"(parallel nvcc and link {kernels.STATE.build_seconds:.2f} s; 0 = "
+        f"cached) -> {kernels.STATE.path}")
+    source, entry, spills, regs = "", "", {}, {}
     for line in kernels.STATE.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+        if line.startswith("== "):
+            source = line[3:]
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = f"{source}:{kernel_name(m.group(1))}"
+        if "spill" in line or "registers" in line:
+            log(f"[build] {entry} {line.strip()}")
+        if "sm90" in source:
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                spills[entry] = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and "bwd_kernel" in entry:
+                regs[entry] = int(m.group(1))
+    if kernels.STATE.build_seconds:
+        check(spills and not any(spills.values()),
+              f"Hopper flash kernels spill: {spills}")
+        # before any launch: a count below this would leave setmaxnreg
+        # waiting for registers that no warp frees
+        check(regs and all(r == SM90_BWD_REGS for r in regs.values()),
+              f"Hopper fused backward built for {regs} registers, want "
+              f"{SM90_BWD_REGS} (setmaxnreg's pool)")
+    counts = sass_counts(kernels.STATE.path)
+    log(f"[build] SASS: {counts['HGMMA']} HGMMA (wgmma) and "
+        f"{counts['UTMALDG']} UTMALDG (TMA load) instructions")
+    check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
+          f"no tensor-core or TMA instructions in the library: {counts}")
 
 
 def nvidia_smi_line() -> str:
@@ -610,14 +689,15 @@ def phase_ctc_kernels(cfg) -> list[dict]:
     ]
 
 
-def flash_inputs(seed: int, B: int, T: int, lengths, dtype):
+def flash_inputs(seed: int, B: int, T: int, lengths, dtype,
+                 H: int = FLASH_H, Dh: int = FLASH_DH):
     """q, k, v, dO [B, T, H, Dh] ~ N(0, 1) from a seed, cast to ``dtype``,
     and int32 lengths, on the card."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
-    shape = (B, T, FLASH_H, FLASH_DH)
+    shape = (B, T, H, Dh)
     xs = [torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32))
           .to("cuda", dtype) for _ in range(4)]
     return (*xs, torch.tensor(lengths, dtype=torch.int32, device="cuda"))
@@ -681,24 +761,59 @@ def flash_errors(got: dict, q, k, v, ln) -> dict:
     return errs
 
 
-def flash_bound(name: str, B: int, T: int, lengths, elt: int):
-    """(ms, bound_by) of a flash kernel at these shapes: its matmul FLOPs
-    over the card's dense bf16 peak against its bytes over 3.35 TB/s. The
-    FLOPs are units x H Dh T sum(lengths) (queries all T rows, keys the
-    valid ones: the kernels skip key tiles past the length), in units of
-    B H T^2 Dh: 4 forward, 10 fused backward, 6 dq and 8 dk/dv (14 two-
-    pass)."""
-    from lipreading_tpu_torch.flops import device_peak_flops
-
+def flash_work(name: str, B: int, T: int, lengths, elt: int):
+    """(FLOPs, bytes) of a flash kernel at the path's H and Dh. The FLOPs
+    are units x H Dh T sum(lengths) (queries all T rows, keys the valid
+    ones: the kernels skip key tiles past the length), in units of B H T^2
+    Dh: 4 forward, 10 fused backward, 6 dq and 8 dk/dv (14 two-pass); the
+    bytes read each input once and write each output once."""
     units = {"fwd": 4, "fused": 10, "dq": 6, "dkv": 8}[name]
     flops = units * FLASH_H * FLASH_DH * T * float(sum(lengths))
     x = B * T * FLASH_H * FLASH_DH * elt        # one [B, T, H, Dh] tensor
     rows = B * FLASH_H * T * 4                   # one float32 row vector
     nbytes = {"fwd": 4 * x, "fused": 7 * x + 2 * rows, "dq": 5 * x + 2 * rows,
               "dkv": 6 * x + 2 * rows}[name] + B * 4
+    return flops, nbytes
+
+
+def flash_bound(name: str, B: int, T: int, lengths, elt: int):
+    """(ms, bound_by) of a flash kernel at these shapes: its FLOPs over the
+    card's dense bf16 peak against its bytes over 3.35 TB/s."""
+    from lipreading_tpu_torch.flops import device_peak_flops
+
+    flops, nbytes = flash_work(name, B, T, lengths, elt)
     t_ops = flops / device_peak_flops("bfloat16") * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def flash_bare(q, k, v, ln, gg, delta, lse) -> dict:
+    """Each flash kernel's C entry as a bare ctypes launch on preallocated
+    outputs (no checks, no allocation, no Python wrapper): what the card
+    spends on the kernel itself. The fused entry's dq workspace is zeroed
+    once, not before each launch: its values do not change the work."""
+    import math
+
+    import torch
+
+    from lipreading_tpu_torch import kernels
+
+    lib = kernels.lib()
+    B, T, H, Dh = q.shape
+    geo = (B, T, H, Dh, int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(Dh),
+           kernels.stream_ptr(q.device))
+    out = torch.empty_like(q)
+    ws = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    ins = [x.data_ptr() for x in (q, k, v, ln, gg, delta, lse)]
+    o, w, gq, gk, gv = (x.data_ptr() for x in (out, ws, dq, dk, dv))
+    return {
+        "fwd": lambda: lib.flash_fwd(*ins[:4], o, None, *geo),
+        "fused": lambda: lib.flash_bwd_fused(*ins, w, gq, gk, gv, *geo),
+        "dq": lambda: lib.flash_bwd_dq(*ins, gq, *geo),
+        "dkv": lambda: lib.flash_bwd_dkv(*ins, gk, gv, *geo),
+        "_keep": (out, ws, dq, dk, dv),   # the outputs live while timed
+    }
 
 
 def phase_flash_kernels() -> list[dict]:
@@ -710,13 +825,14 @@ def phase_flash_kernels() -> list[dict]:
     import torch
     import torch.nn.functional as F
 
+    from lipreading_tpu_torch import kernels
     from lipreading_tpu_torch.ops import flash_attention as fa
 
     rows = {}
-    for case, B, T, lengths in FLASH_CASES:
+    for case, B, T, H, Dh, lengths, timed in FLASH_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype)[6:]
-            q, k, v, g, ln = flash_inputs(T + B, B, T, lengths, dtype)
+            q, k, v, g, ln = flash_inputs(T + B, B, T, lengths, dtype, H, Dh)
             got = flash_all(q, k, v, ln, g)
             torch.cuda.synchronize()
             errs = flash_errors(got, q, k, v, ln)
@@ -727,7 +843,7 @@ def phase_flash_kernels() -> list[dict]:
             lim = FLASH_LIMITS[dname]
             zero = [b for b, n in enumerate(lengths) if n == 0]
             for name, (e, e_abs) in errs.items():
-                log(f"[flash] {case} B={B} T={T} H={FLASH_H} Dh={FLASH_DH} "
+                log(f"[flash] {case} B={B} T={T} H={H} Dh={Dh} "
                     f"{dname} lengths {list(lengths)}: {name} max|kernel - "
                     f"plain| / max|plain| = {e:.3g} (abs {e_abs:.3g}), limit "
                     f"{lim:g}, planted fault {bad_errs[name][0]:.3g}")
@@ -744,10 +860,15 @@ def phase_flash_kernels() -> list[dict]:
                 for b in zero:
                     check(x[b].abs().max().item() == 0.0,
                           f"flash {case} {dname}: length 0 is not 0")
-            if dtype != torch.bfloat16:
+            if dtype != torch.bfloat16 or not timed:
                 continue
             iters = 20 if T <= 1024 else 3
             gg, delta, lse = got["_bwd_in"]
+            bare = flash_bare(q, k, v, ln, gg, delta, lse)
+            dev_ms = {}
+            for n in ("fwd", "fused", "dq", "dkv"):
+                kernels.check(bare[n](), f"bare {n}")
+                dev_ms[n] = time_ms(bare[n], 50 if T <= 1024 else 10)
             ms = {
                 "fwd": time_ms(lambda: fa.flash_fwd(q, k, v, ln), iters),
                 "fused": time_ms(lambda: fa.flash_bwd_fused(
@@ -780,10 +901,13 @@ def phase_flash_kernels() -> list[dict]:
             elt = q.element_size()
             for name in ("fwd", "fused", "dq", "dkv"):
                 b_ms, b_by = flash_bound(name, B, T, lengths, elt)
+                flops = flash_work(name, B, T, lengths, elt)[0]
                 plain = plain_fwd if name == "fwd" else plain_bwd
                 lib = lib_f if name == "fwd" else lib_fb
-                log(f"[flash] {case} bf16 {name}: kernel {ms[name]:.4f} ms, "
-                    f"plain {plain:.4f} ms, SDPA "
+                log(f"[flash] {case} bf16 {name}: kernel device "
+                    f"{dev_ms[name]:.4f} ms ({flops / dev_ms[name] / 1e9:.1f} "
+                    f"TFLOP/s, {b_ms / dev_ms[name]:.1%} of the bound), "
+                    f"wrapper {ms[name]:.4f} ms, plain {plain:.4f} ms, SDPA "
                     f"{'forward' if name == 'fwd' else 'forward+backward'} "
                     f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
                 if case == "path":
@@ -791,10 +915,12 @@ def phase_flash_kernels() -> list[dict]:
                         if name == "fwd" else errs[name][1]
                     rows[name] = dict(
                         name=FLASH_ROW[name], route="cuda",
-                        source="lipreading_tpu_torch/csrc/flash_attention.cu",
+                        source=FLASH_SOURCE[name],
                         replaces=FLASH_REPLACES[name], launches=0,
-                        max_abs_err=err, ms=ms[name], plain_ms=plain,
-                        bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+                        max_abs_err=err, ms=dev_ms[name], plain_ms=plain,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                        wrapper_ms=ms[name])
+            del bare
             del q, k, v, g, got, bad, leaves
             torch.cuda.empty_cache()
 

@@ -23,9 +23,14 @@
 // The Pallas kernels pad D to 128 lanes and T to the block; here every
 // kernel indexes [B, T, H, D] in place, with bounds checks, any D <= 128.
 //
+// For bf16 inputs `flash_fwd` and `flash_bwd_fused` run the Hopper kernels
+// of flash_attention_sm90.cu (wgmma, TMA): the kernels below serve float32
+// and the two-pass pair in both types. The float32 instances stay on the
+// CUDA cores, since no tensor-core type meets the float32 limit.
+//
 // Bound on the H100: operations. At T = 1024 a forward does 4 B H T^2 D
 // multiply-adds' worth of FLOPs on 2 B T H D inputs, far above the card's
-// ~295 FLOP/byte ridge in bf16. This first version keeps the design simple:
+// ~295 FLOP/byte ridge in bf16. These kernels keep the design simple:
 // float32 FMA on the CUDA cores (no tensor cores yet), 64 x 64 tiles in
 // shared memory, each of 256 threads owning a 4 x 4 patch of the score tile
 // (rows ty + 16 i, columns tx + 16 j) and the matching patch of the output
@@ -43,6 +48,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "flash_attention_sm90.cuh"
 
 namespace {
 
@@ -504,6 +511,16 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* lengths,
   return (int)cudaGetLastError();
 }
 
+// dq = workspace * scale in the activation type, after the fused sweep.
+template <typename T>
+int dq_finish(const void* dq_ws, void* dq, size_t n, float scale,
+              cudaStream_t st) {
+  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
+  flash_dq_finish_kernel<T><<<blocks, 256, 0, st>>>(
+      static_cast<const float*>(dq_ws), static_cast<T*>(dq), n, scale);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int DMAX, bool FUSED>
 int bwd_kv(const void* q, const void* k, const void* v, const void* lengths,
            const void* dout, const void* delta, const void* lse, void* dq_ws,
@@ -522,11 +539,7 @@ int bwd_kv(const void* q, const void* k, const void* v, const void* lengths,
       static_cast<T*>(dk), static_cast<T*>(dv), Tn, H, D, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess || !FUSED) return (int)e;
-  const size_t n = (size_t)B * Tn * H * D;
-  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
-  flash_dq_finish_kernel<T><<<blocks, 256, 0, st>>>(
-      static_cast<const float*>(dq_ws), static_cast<T*>(dq), n, scale);
-  return (int)cudaGetLastError();
+  return dq_finish<T>(dq_ws, dq, (size_t)B * Tn * H * D, scale, st);
 }
 
 constexpr int kMaxD = 128;
@@ -534,7 +547,9 @@ constexpr int kMaxD = 128;
 }  // namespace
 
 // The kernels take D <= 128 (the path's D is 64); bf16 != 0 selects bf16
-// inputs and outputs, else float32. scale = 1 / sqrt(D) as a float.
+// inputs and outputs, else float32. scale = 1 / sqrt(D) as a float (of the
+// head dim before any padding). The bf16 forward and fused backward need
+// D % 8 == 0 and 16-byte aligned bases (flash_attention_sm90.cuh).
 
 // q, k, v [B, T, H, D], lengths [B] -> out [B, T, H, D] and, when lse is
 // not null, lse [B, H, T] float32.
@@ -547,10 +562,8 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   if (D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return D <= 64 ? fwd<__nv_bfloat16, 64>(q, k, v, lengths, out, lse, B, T,
-                                           H, D, scale, st)
-                   : fwd<__nv_bfloat16, 128>(q, k, v, lengths, out, lse, B,
-                                            T, H, D, scale, st);
+    return flash_fwd_bf16_sm90(q, k, v, lengths, out, lse, B, T, H, D, scale,
+                               st);
   return D <= 64 ? fwd<float, 64>(q, k, v, lengths, out, lse, B, T, H, D,
                                   scale, st)
                  : fwd<float, 128>(q, k, v, lengths, out, lse, B, T, H, D,
@@ -618,13 +631,14 @@ extern "C" int flash_bwd_fused(const void* q, const void* k, const void* v,
   if (B == 0 || T == 0 || H == 0) return 0;
   if (D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return D <= 64 ? bwd_kv<__nv_bfloat16, 64, true>(
-                         q, k, v, lengths, dout, delta, lse, dq_ws, dq, dk,
-                         dv, B, T, H, D, scale, st)
-                   : bwd_kv<__nv_bfloat16, 128, true>(
-                         q, k, v, lengths, dout, delta, lse, dq_ws, dq, dk,
-                         dv, B, T, H, D, scale, st);
+  if (bf16) {
+    const int e = flash_bwd_fused_bf16_sm90(q, k, v, lengths, dout, delta,
+                                            lse, dq_ws, dk, dv, B, T, H, D,
+                                            scale, st);
+    if (e != 0) return e;
+    return dq_finish<__nv_bfloat16>(dq_ws, dq, (size_t)B * T * H * D, scale,
+                                    st);
+  }
   return D <= 64 ? bwd_kv<float, 64, true>(q, k, v, lengths, dout, delta, lse,
                                            dq_ws, dq, dk, dv, B, T, H, D,
                                            scale, st)

@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels.
 
-All ``csrc/*.cu`` files are compiled by one ``nvcc`` call into one shared
-library with a plain C interface, which ``ctypes`` loads. The library lands
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library with a
+plain C interface, which ``ctypes`` loads. The library lands
 in ``_build/<hash of the sources and flags>/`` inside the package (listed in
 ``.gitignore``), so a second run with the same sources loads it without
 rebuilding. A failed build raises with nvcc's output. Nothing is built or
@@ -28,8 +29,7 @@ import torch
 CSRC = os.path.join(os.path.dirname(__file__), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(__file__), "_build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # C entry -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
@@ -85,8 +85,8 @@ def _nvcc() -> str:
 
 
 def build() -> str:
-    """Compile ``csrc/*.cu`` unless a library for these sources exists;
-    returns its path."""
+    """Compile ``csrc/*.cu`` (one ``nvcc`` per source, in parallel) and link
+    them, unless a library for these sources exists; returns its path."""
     srcs = _sources()
     h = hashlib.sha256(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
     for s in srcs:
@@ -98,16 +98,36 @@ def build() -> str:
         STATE.build_seconds = 0.0
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", tmp,
-           *[s for s in srcs if s.endswith(".cu")]]
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in (s for s in srcs if s.endswith(".cu")):
+        obj = os.path.join(out_dir, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        logs.append(f"== {os.path.basename(cmd[-1])}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}")
+    tmp = f"{lib_path}.{tag}"
+    if not failed:
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp,
+               *[obj for _, obj, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link failed ({proc.returncode}): {' '.join(cmd)}")
     STATE.build_seconds = time.perf_counter() - t0
-    STATE.build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{STATE.build_log}")
+    STATE.build_log = "\n".join(logs)
+    for _, obj, _ in jobs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("\n".join(failed) + "\n" + STATE.build_log)
     os.replace(tmp, lib_path)
     return lib_path
 

@@ -10,8 +10,10 @@ keys at or past the length masked with -1e30, the output ``acc / max(l,
 1e-30)`` cast to q's type, and a sample of length 0 gives exact zeros. At
 bf16 the two are different functions.
 
-Four kernels (``csrc/flash_attention.cu``), each with its plain PyTorch
-version beside it:
+Four kernels (``csrc/flash_attention.cu``; in bf16 the forward and the
+fused backward are the Hopper kernels of ``csrc/flash_attention_sm90.cu``,
+tensor cores with P and dS split into bf16 hi + lo), each with its plain
+PyTorch version beside it:
 
 * ``flash_fwd`` (with the logsumexp ``lse`` on request) replaces
   ``_flash_kernel``;
@@ -51,9 +53,11 @@ from lipreading_tpu_torch import kernels
 NEG_INF = -1e30
 FLASH_BWD = ("auto", "xla", "pallas", "fused")
 # ``auto`` takes the fused backward from this many frames on, the xla one
-# below. On the H100 the fused kernel's forward + backward beat the xla
-# backward's at every T read, 64 to 8192 (chip_smoke.py's [flash] auto
-# readings, PERF.md section 6), so this is the smallest T read
+# below. On the H100 (80GB HBM3, 700 W) the fused kernel's forward +
+# backward beat the xla backward's at every T read, 64 to 8192, with the
+# first CUDA-core kernels and again with the tensor-core ones
+# (chip_smoke.py's [flash] auto readings, PERF.md section 6), so this is
+# the smallest T read
 AUTO_FUSED_MIN_T = 64
 MAX_HEAD_DIM = 128          # the kernels' limit; universal4 has 64
 
@@ -193,6 +197,29 @@ def _geometry(q):
             1.0 / math.sqrt(Dh))
 
 
+def _tma_ready(xs, bf16: int):
+    """The bf16 forward and fused backward kernels read [B, T, H, Dh]
+    through TMA maps, which need each stride (Dh * 2 bytes) and each base to
+    be a multiple of 16 bytes. Where one is not (Dh 12, say, or a view at an
+    odd offset), the inputs are copied into zero-padded [B, T, H, Dp]
+    buffers, Dp = Dh rounded up to 8, as the JAX package pads Dh in
+    ``_prep``: zero columns add nothing to q . k and give zero output
+    columns, which the caller slices off; the scale stays 1/sqrt(Dh).
+    universal4 (Dh 64, whole allocations) never takes the copy. -> (xs,
+    the head dim to launch with)."""
+    Dh = xs[0].shape[-1]
+    if not bf16 or (Dh % 8 == 0 and all(x.data_ptr() % 16 == 0
+                                        for x in xs)):
+        return xs, Dh
+    Dp = -(-Dh // 8) * 8
+    out = []
+    for x in xs:
+        y = x.new_zeros((*x.shape[:-1], Dp))
+        y[..., :Dh] = x
+        out.append(y)
+    return out, Dp
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               lengths: torch.Tensor, return_lse: bool = False):
     """q, k, v [B, T, H, Dh] (float32 or bf16), lengths [B] int32 -> out
@@ -205,15 +232,18 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_fwd_reference(q, k, v, lengths, return_lse)
     q, k, v, lengths = (x.contiguous() for x in (q, k, v, lengths))
     B, T, H, Dh, bf16, scale = _geometry(q)
+    (q, k, v), D = _tma_ready([q, k, v], bf16)
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, T), dtype=torch.float32, device=q.device)
            if return_lse else None)
     err = kernels.lib().flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), lse.data_ptr() if return_lse else None,
-        B, T, H, Dh, bf16, scale, kernels.stream_ptr(q.device))
+        B, T, H, D, bf16, scale, kernels.stream_ptr(q.device))
     kernels.check(err, "flash_fwd")
     flash_fwd.launches += 1
+    if D != Dh:
+        out = out[..., :Dh].contiguous()
     return (out, lse) if return_lse else out
 
 
@@ -233,17 +263,21 @@ def flash_bwd_fused(q, k, v, lengths, dout, delta, lse):
     tensors it runs ``flash_bwd_fused_reference``."""
     if not _check("flash_bwd_fused", q, k, v, lengths, dout, delta, lse):
         return flash_bwd_fused_reference(q, k, v, lengths, dout, delta, lse)
-    ins = _contiguous(q, k, v, lengths, dout, delta, lse)
+    q, k, v, lengths, dout, delta, lse = _contiguous(q, k, v, lengths, dout,
+                                                     delta, lse)
     B, T, H, Dh, bf16, scale = _geometry(q)
+    (q, k, v, dout), D = _tma_ready([q, k, v, dout], bf16)
     ws = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
                   for _ in range(3))
     err = kernels.lib().flash_bwd_fused(
-        *(x.data_ptr() for x in ins), ws.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, H, Dh, bf16,
-        scale, kernels.stream_ptr(q.device))
+        *(x.data_ptr() for x in (q, k, v, lengths, dout, delta, lse)),
+        ws.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, T, H, D, bf16, scale, kernels.stream_ptr(q.device))
     kernels.check(err, "flash_bwd_fused")
     flash_bwd_fused.launches += 1
+    if D != Dh:
+        dq, dk, dv = (x[..., :Dh].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv
 
 

@@ -194,9 +194,12 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 # bf16: 1e-2, the outputs are float32 sums rounded to bf16 on both sides, so
 # they differ by at most about one bf16 ulp (2^-8 of the largest values)
 FLASH_REL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+# (2, 33, 1, 12): a 24-byte row, not a multiple of TMA's 16 bytes, so the
+# bf16 wrappers take their zero-padded copy (as Dh 100 does)
 FLASH_CASES = [(2, 40, 2, 16, [40, 23]), (1, 13, 3, 8, [11]),
                (3, 130, 4, 64, [130, 64, 0]), (2, 77, 2, 100, [77, 5]),
-               (4, 1024, 4, 64, [1024, 1000, 517, 0])]
+               (4, 1024, 4, 64, [1024, 1000, 517, 0]),
+               (2, 33, 1, 12, [33, 20])]
 
 
 def _flash_case(seed, B, T, H, D, lengths, dtype):
@@ -246,6 +249,21 @@ def test_flash_kernels_match_plain(cuda, dtype, B, T, H, D, lengths):
         if n == 0:
             for x in (out, *fused, dq, *dkv):
                 assert x[b].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+def test_flash_fwd_long_clip_matches_plain(cuda):
+    """The bf16 forward at T 8192 (the long shape of chip_smoke.py's
+    [flash]) against its plain version: out within 1e-2, lse within 2e-5
+    of the largest."""
+    q, k, v, _, ln = (x.to(cuda) for x in _flash_case(
+        8192, 2, 8192, 4, 64, [8192, 6001], torch.bfloat16))
+    out, lse = fa.flash_fwd(q, k, v, ln, return_lse=True)
+    want, lse_w = fa.flash_fwd_reference(q, k, v, ln, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert _rel(out, want) <= FLASH_REL[torch.bfloat16]
+    assert _rel(lse, lse_w) <= 2e-5
 
 
 @pytest.mark.cuda
