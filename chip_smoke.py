@@ -8,8 +8,9 @@ Phases, each of which must pass:
 1. build the CUDA kernels of ``lipreading_tpu_torch/csrc`` (one ``nvcc``
    per source, all started together, then one link; cached by a hash of
    the sources), print the build seconds, each kernel's registers and
-   spills (the Hopper flash kernels must not spill) and how many ``HGMMA``
-   and ``UTMALDG`` instructions the library holds (both must be > 0);
+   spills (the Hopper flash kernels must not spill, and those that trade
+   registers with ``setmaxnreg`` must be built for its pool) and how many
+   ``HGMMA`` and ``UTMALDG`` instructions the library holds (both > 0);
 2. print the card's name and power limit as ``nvidia-smi`` reports them;
 3. hold every kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, and time the kernel, the plain version and
@@ -39,9 +40,11 @@ Flash attention (``model.flash_attention=1``) adds three phases:
   (B 4, T 1024, H 4, Dh 64, ragged lengths with a 0), at T 8192 and at a
   ragged B 3, T 200, H 2, Dh 100 (lengths 200, 1, 0; not timed), in bf16
   and float32, within limits that a planted fault (each key mask one short)
-  must break; each kernel's own device time (CUDA events around its bare
-  C entry), its TFLOP/s and share of the bound, the wrapper's time, the
-  plain version's and SDPA's beside them; the ``auto`` policy's readings
+  must break; two launches of the two-pass pair giving the same bytes;
+  each kernel's own device time (CUDA events around its bare C entry), its
+  TFLOP/s and share of the bound, the wrapper's time, the plain version's
+  and SDPA's device time (its kernels' sum in ``torch.profiler``, the
+  backward's kernels apart) beside them; the ``auto`` policy's readings
   (forward + backward under xla, fused and pallas);
 * ``[path-flash]``: the release with flash on transcribes the short clips of
   ``[path]`` and 4 long clips (about 1000 frames, padded to 1024, rendered
@@ -124,19 +127,23 @@ FLASH_REPLACES = {
 FLASH_ROW = {"fwd": "flash_fwd", "fused": "flash_bwd_fused",
              "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
 # the source of each row's (bf16) kernel
-FLASH_SOURCE = {
-    "fwd": "lipreading_tpu_torch/csrc/flash_attention_sm90.cu",
-    "fused": "lipreading_tpu_torch/csrc/flash_attention_sm90.cu",
-    "dq": "lipreading_tpu_torch/csrc/flash_attention.cu",
-    "dkv": "lipreading_tpu_torch/csrc/flash_attention.cu",
-}
+FLASH_SOURCE = dict.fromkeys(
+    FLASH_ROW, "lipreading_tpu_torch/csrc/flash_attention_sm90.cu")
+# bf16 device times (ms) of the two-pass pair's earlier kernels, float32 FMA
+# on the CUDA cores, at the timed cases (chip_smoke.py's [flash] on an
+# NVIDIA H100 80GB HBM3 at 700.00 W; PERF.md section 6, row 7): printed
+# beside the tensor-core kernels' own
+CUDA_CORE_PAIR_MS = {("dq", 1024): 0.2777, ("dkv", 1024): 0.4585,
+                     ("dq", 8192): 9.3753, ("dkv", 8192): 12.5711}
+# the Hopper kernels whose warpgroups trade registers with setmaxnreg, and
+# the registers a thread of each must be built for: the producer warpgroup
+# gives (168 - 56) x 128 to the two consumer warpgroups, 256 x (224 - 168)
+# (csrc/flash_attention_sm90.cu, kBwdRegs)
+SM90_SETMAXNREG = ("bwd_kernel", "bwd_dq_kernel")
+SM90_BWD_REGS = 168
 # one float32 step's gradient under pallas and fused against xla: limits
 # between the readings and a planted fault's (PERF.md section 6, flash
 # attention)
-# registers a thread of the Hopper fused backward is built for: its
-# setmaxnreg moves (168 - 24) x 128 to the consumers, 256 x (240 - 168)
-# (csrc/flash_attention_sm90.cu, kBwdRegs)
-SM90_BWD_REGS = 168
 FLASH_GRAD_LIMITS = {"grad_rel": 3e-5, "grad_1_cos": 1e-9}
 FLASH_TRAIN_STEPS = 3       # steps under each backward policy
 FLASH_FIXED_STEPS = 5       # steps on the fixed long batch
@@ -194,6 +201,32 @@ def time_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int) -> tuple[float, dict]:
+    """Device milliseconds per call of ``fn()``: the device time of every
+    kernel, fill and copy that ``torch.profiler`` records over ``iters``
+    warmed calls, summed and divided by ``iters`` -> (ms, {name: ms}).
+    Fails if the profiler records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            split[e.name] = (split.get(e.name, 0.0)
+                             + e.time_range.elapsed_us() / 1e3 / iters)
+    check(sum(split.values()) > 0, "torch.profiler recorded no device time")
+    return sum(split.values()), split
+
+
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
@@ -246,14 +279,21 @@ def kernel_name(mangled: str) -> str:
             n = int(mangled[i:m.end()])
             name = mangled[m.end():m.end() + n]
             if name.endswith("_kernel"):
-                t = re.match(r"I(\w+?)E", mangled[m.end() + n:])
-                return name + (f"<{t.group(1)}>" if t else "")
+                # template arguments: types by letter, values as L<type>nE
+                t = re.match(r"I((?:L[a-z]\d+E|[a-z])+)E",
+                             mangled[m.end() + n:])
+                if not t:
+                    return name
+                args = [v or {"f": "float"}.get(c, c) for v, c in
+                        re.findall(r"L[a-z](\d+)E|([a-z])", t.group(1))]
+                return f"{name}<{','.join(args)}>"
     return mangled
 
 
 def phase_build():
     """Build, print each kernel's registers and spills as ptxas reports them
-    (the Hopper flash kernels must not spill) and the SASS counts."""
+    (the Hopper flash kernels must not spill; those that use setmaxnreg
+    must be built for its pool) and the SASS counts."""
     import re
 
     from lipreading_tpu_torch import kernels
@@ -277,16 +317,19 @@ def phase_build():
             if m:
                 spills[entry] = int(m.group(1))
             m = re.search(r"Used (\d+) registers", line)
-            if m and "bwd_kernel" in entry:
+            if m and entry.split(":")[-1].split("<")[0] in SM90_SETMAXNREG:
                 regs[entry] = int(m.group(1))
     if kernels.STATE.build_seconds:
         check(spills and not any(spills.values()),
               f"Hopper flash kernels spill: {spills}")
         # before any launch: a count below this would leave setmaxnreg
         # waiting for registers that no warp frees
-        check(regs and all(r == SM90_BWD_REGS for r in regs.values()),
-              f"Hopper fused backward built for {regs} registers, want "
-              f"{SM90_BWD_REGS} (setmaxnreg's pool)")
+        found = {e.split(":")[-1].split("<")[0] for e in regs}
+        check(found == set(SM90_SETMAXNREG)
+              and all(r == SM90_BWD_REGS for r in regs.values()),
+              f"Hopper setmaxnreg kernels built for {regs} registers, want "
+              f"{SM90_BWD_REGS} (setmaxnreg's pool) for each of "
+              f"{SM90_SETMAXNREG}")
     counts = sass_counts(kernels.STATE.path)
     log(f"[build] SASS: {counts['HGMMA']} HGMMA (wgmma) and "
         f"{counts['UTMALDG']} UTMALDG (TMA load) instructions")
@@ -816,14 +859,50 @@ def flash_bare(q, k, v, ln, gg, delta, lse) -> dict:
     }
 
 
+def sdpa_device_ms(q, k, v, g, ln, iters: int) -> dict:
+    """SDPA with the boolean key mask on the same inputs, by device time
+    (``device_ms``): the forward alone (no grad), and the training forward
+    + backward with the backward's kernels apart (those the forward with
+    grad does not launch, or launches for less time) -> {"fwd", "fwd_bwd",
+    "bwd": ms, "bwd_kernels": {name: ms}}."""
+    import torch
+    import torch.nn.functional as F
+
+    T = q.shape[1]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))   # [B, H, T, Dh]
+    mask = (torch.arange(T, device="cuda")[None, :]
+            < ln[:, None])[:, None, None, :]
+    leaves = [x.detach().clone().requires_grad_() for x in (qt, kt, vt)]
+    gt = g.transpose(1, 2)
+
+    def fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+    def fwd_grad():
+        F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+
+    def fwd_bwd():
+        for x in leaves:
+            x.grad = None
+        F.scaled_dot_product_attention(*leaves, attn_mask=mask).backward(gt)
+
+    f = device_ms(fwd, iters)[0]
+    fg, split_f = device_ms(fwd_grad, iters)
+    fb, split_fb = device_ms(fwd_bwd, iters)
+    bwd = {n: t - split_f.get(n, 0.0) for n, t in split_fb.items()
+           if t - split_f.get(n, 0.0) > 1e-4}
+    return {"fwd": f, "fwd_bwd": fb, "bwd": fb - fg, "bwd_kernels": bwd}
+
+
 def phase_flash_kernels() -> list[dict]:
     """The four flash kernels against their plain versions at the path's
     shape and at a long one, in bf16 and float32, each limit checked against
-    the card's reading and a planted fault (the key mask one short); times,
-    bounds and SDPA as the yardstick at the path's shape; the auto policy's
-    readings (xla against fused, forward plus backward)."""
+    the card's reading and a planted fault (the key mask one short), the
+    two-pass pair's bytes equal over two launches; device times, bounds and
+    SDPA's device time as the yardstick; the auto policy's readings (xla,
+    fused and pallas, forward plus backward)."""
     import torch
-    import torch.nn.functional as F
 
     from lipreading_tpu_torch import kernels
     from lipreading_tpu_torch.ops import flash_attention as fa
@@ -860,6 +939,16 @@ def phase_flash_kernels() -> list[dict]:
                 for b in zero:
                     check(x[b].abs().max().item() == 0.0,
                           f"flash {case} {dname}: length 0 is not 0")
+            # the two-pass pair writes without atomics: the same bytes again
+            again = (fa.flash_bwd_dq(q, k, v, ln, *got["_bwd_in"]),
+                     *fa.flash_bwd_dkv(q, k, v, ln, *got["_bwd_in"]))
+            same = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                       for a, b in zip((*got["dq"], *got["dkv"]), again))
+            log(f"[flash] {case} {dname}: dq, dk, dv of a second launch of "
+                f"the two-pass pair {'equal' if same else 'DIFFER from'} the "
+                "first, byte for byte")
+            check(same, f"flash two-pass {case} {dname}: not reproducible")
+            del again
             if dtype != torch.bfloat16 or not timed:
                 continue
             iters = 20 if T <= 1024 else 3
@@ -882,34 +971,28 @@ def phase_flash_kernels() -> list[dict]:
                                 max(2, iters // 5))
             plain_bwd = time_ms(lambda: fa.flash_bwd_fused_reference(
                 q, k, v, ln, gg, delta, lse), max(2, iters // 5))
-            # SDPA with the boolean key mask, [B, H, T, Dh]
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            mask = (torch.arange(T, device="cuda")[None, :]
-                    < ln[:, None])[:, None, None, :]
-            leaves = [x.detach().clone().requires_grad_() for x in (qt, kt, vt)]
-            gt = g.transpose(1, 2)
-
-            def sdpa_fwd_bwd():
-                for x in leaves:
-                    x.grad = None
-                F.scaled_dot_product_attention(*leaves, attn_mask=mask
-                                               ).backward(gt)
-
-            lib_f = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask), iters)
-            lib_fb = time_ms(sdpa_fwd_bwd, iters)
+            # SDPA with the boolean key mask, by device time
+            sd = sdpa_device_ms(q, k, v, g, ln, iters)
+            log(f"[flash] {case} bf16 SDPA device time (torch.profiler): "
+                f"forward {sd['fwd']:.4f} ms, forward+backward "
+                f"{sd['fwd_bwd']:.4f} ms, of which backward {sd['bwd']:.4f} "
+                "ms in " + "; ".join(f"{n[:80]} {t:.4f}" for n, t in
+                                     sd["bwd_kernels"].items()))
             elt = q.element_size()
             for name in ("fwd", "fused", "dq", "dkv"):
                 b_ms, b_by = flash_bound(name, B, T, lengths, elt)
                 flops = flash_work(name, B, T, lengths, elt)[0]
                 plain = plain_fwd if name == "fwd" else plain_bwd
-                lib = lib_f if name == "fwd" else lib_fb
+                lib = sd["fwd"] if name == "fwd" else sd["fwd_bwd"]
+                old = CUDA_CORE_PAIR_MS.get((name, T))
                 log(f"[flash] {case} bf16 {name}: kernel device "
                     f"{dev_ms[name]:.4f} ms ({flops / dev_ms[name] / 1e9:.1f} "
-                    f"TFLOP/s, {b_ms / dev_ms[name]:.1%} of the bound), "
-                    f"wrapper {ms[name]:.4f} ms, plain {plain:.4f} ms, SDPA "
-                    f"{'forward' if name == 'fwd' else 'forward+backward'} "
-                    f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+                    f"TFLOP/s, {b_ms / dev_ms[name]:.1%} of the bound"
+                    + (f"; CUDA-core version {old:.4f} ms, "
+                       f"{old / dev_ms[name]:.1f}x" if old else "")
+                    + f"), wrapper {ms[name]:.4f} ms, plain {plain:.4f} ms, "
+                    f"SDPA {'forward' if name == 'fwd' else 'forward+backward'}"
+                    f" device {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
                 if case == "path":
                     err = max(errs[name][1], errs["fwd_lse"][1]) \
                         if name == "fwd" else errs[name][1]
@@ -921,7 +1004,7 @@ def phase_flash_kernels() -> list[dict]:
                         bound_ms=b_ms, bound_by=b_by, library_ms=lib,
                         wrapper_ms=ms[name])
             del bare
-            del q, k, v, g, got, bad, leaves
+            del q, k, v, g, got, bad
             torch.cuda.empty_cache()
 
     # the auto policy: forward + backward under xla, fused and pallas

@@ -23,9 +23,9 @@
 // The Pallas kernels pad D to 128 lanes and T to the block; here every
 // kernel indexes [B, T, H, D] in place, with bounds checks, any D <= 128.
 //
-// For bf16 inputs `flash_fwd` and `flash_bwd_fused` run the Hopper kernels
-// of flash_attention_sm90.cu (wgmma, TMA): the kernels below serve float32
-// and the two-pass pair in both types. The float32 instances stay on the
+// For bf16 inputs every entry runs the Hopper kernels of
+// flash_attention_sm90.cu (wgmma, TMA): the kernels below serve float32
+// only (and dq_finish casts the bf16 fused backward's dq). They stay on the
 // CUDA cores, since no tensor-core type meets the float32 limit.
 //
 // Bound on the H100: operations. At T = 1024 a forward does 4 B H T^2 D
@@ -59,11 +59,6 @@ constexpr int kThreads = 256;     // 16 x 16
 constexpr int kSub = kTile / 16;  // rows (and columns) of a thread's patch
 constexpr int kLdP = kTile + 1;   // padded row of a [64, 64] score tile
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
@@ -77,14 +72,13 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 
 // Rows [t0, t0 + 64) of one head (row t at x[t * row_stride]) -> float32
 // tile [64, ld], zero past T.
-template <typename T>
-__device__ void load_tile(float* tile, int ld, const T* __restrict__ x,
+__device__ void load_tile(float* tile, int ld, const float* __restrict__ x,
                           size_t row_stride, int t0, int Tn, int D) {
   for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
     const int r = idx / D;
     const int d = idx - r * D;
     const int t = t0 + r;
-    tile[r * ld + d] = t < Tn ? to_f32(x[(size_t)t * row_stride + d]) : 0.0f;
+    tile[r * ld + d] = t < Tn ? x[(size_t)t * row_stride + d] : 0.0f;
   }
 }
 
@@ -122,12 +116,13 @@ __device__ __forceinline__ void tile_dot(float (&s)[kSub][kSub],
 }
 
 // One block per (q tile, b h).
-template <typename T, int DMAX>
+template <int DMAX>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int32_t* __restrict__ lengths,
-                 T* __restrict__ out, float* __restrict__ lse, int Tn, int H,
-                 int D, float scale) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v,
+                 const int32_t* __restrict__ lengths,
+                 float* __restrict__ out, float* __restrict__ lse, int Tn,
+                 int H, int D, float scale) {
   constexpr int kCols = DMAX / 16;
   extern __shared__ float smem[];
   const int ld = D + 1;
@@ -209,11 +204,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int t = q0 + ty + 16 * i;
     if (t >= Tn) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* orow = out + base + (size_t)t * rs;
+    float* orow = out + base + (size_t)t * rs;
 #pragma unroll
     for (int cc = 0; cc < kCols; ++cc) {
       const int d = tx + 16 * cc;
-      if (d < D) orow[d] = from_f32<T>(len > 0 ? acc[i][cc] / den : 0.0f);
+      if (d < D) orow[d] = len > 0 ? acc[i][cc] / den : 0.0f;
     }
     if (lse != nullptr && tx == 0)
       lse[(size_t)bh * Tn + t] = m[i] + logf(den);
@@ -222,15 +217,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // Backward, first of the two passes: one block per (q tile, b h), looping
 // over the k tiles below the length.
-template <typename T, int DMAX>
+template <int DMAX>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
                     const int32_t* __restrict__ lengths,
-                    const T* __restrict__ dout,
+                    const float* __restrict__ dout,
                     const float* __restrict__ delta,
-                    const float* __restrict__ lse, T* __restrict__ dq, int Tn,
-                    int H, int D, float scale) {
+                    const float* __restrict__ lse, float* __restrict__ dq,
+                    int Tn, int H, int D, float scale) {
   constexpr int kCols = DMAX / 16;
   extern __shared__ float smem[];
   const int ld = D + 1;
@@ -302,11 +297,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < kSub; ++i) {
     const int t = q0 + ty + 16 * i;
     if (t >= Tn) continue;
-    T* row = dq + base + (size_t)t * rs;
+    float* row = dq + base + (size_t)t * rs;
 #pragma unroll
     for (int cc = 0; cc < kCols; ++cc) {
       const int d = tx + 16 * cc;
-      if (d < D) row[d] = from_f32<T>(acc[i][cc] * scale);
+      if (d < D) row[d] = acc[i][cc] * scale;
     }
   }
 }
@@ -314,16 +309,16 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // dk, dv (the second pass) and, with FUSED, dq added into a float32
 // workspace [B, T, H, D]: one block per (k tile, b h), looping over every
 // q tile (queries are not masked, only keys).
-template <typename T, int DMAX, bool FUSED>
+template <int DMAX, bool FUSED>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v,
+flash_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
                     const int32_t* __restrict__ lengths,
-                    const T* __restrict__ dout,
+                    const float* __restrict__ dout,
                     const float* __restrict__ delta,
                     const float* __restrict__ lse, float* __restrict__ dq_ws,
-                    T* __restrict__ dk, T* __restrict__ dv, int Tn, int H,
-                    int D, float scale) {
+                    float* __restrict__ dk, float* __restrict__ dv, int Tn,
+                    int H, int D, float scale) {
   constexpr int kCols = DMAX / 16;
   extern __shared__ float smem[];
   const int ld = D + 1;
@@ -443,14 +438,14 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < kSub; ++i) {
     const int t = k0 + ty + 16 * i;
     if (t >= Tn) continue;
-    T* krow = dk + base + (size_t)t * rs;
-    T* vrow = dv + base + (size_t)t * rs;
+    float* krow = dk + base + (size_t)t * rs;
+    float* vrow = dv + base + (size_t)t * rs;
 #pragma unroll
     for (int cc = 0; cc < kCols; ++cc) {
       const int d = tx + 16 * cc;
       if (d < D) {
-        krow[d] = from_f32<T>(gk[i][cc] * scale);
-        vrow[d] = from_f32<T>(gv[i][cc]);
+        krow[d] = gk[i][cc] * scale;
+        vrow[d] = gv[i][cc];
       }
     }
   }
@@ -480,34 +475,34 @@ inline dim3 grid_for(int B, int Tn, int H) {
   return dim3((Tn + kTile - 1) / kTile, B * H);
 }
 
-template <typename T, int DMAX>
+template <int DMAX>
 int fwd(const void* q, const void* k, const void* v, const void* lengths,
         void* out, void* lse, int B, int Tn, int H, int D, float scale,
         cudaStream_t st) {
   const size_t smem = 3 * tile_bytes(D) + score_bytes();
-  auto kern = flash_fwd_kernel<T, DMAX>;
+  auto kern = flash_fwd_kernel<DMAX>;
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
   kern<<<grid_for(B, Tn, H), kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int32_t*>(lengths),
-      static_cast<T*>(out), static_cast<float*>(lse), Tn, H, D, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int32_t*>(lengths),
+      static_cast<float*>(out), static_cast<float*>(lse), Tn, H, D, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DMAX>
+template <int DMAX>
 int bwd_dq(const void* q, const void* k, const void* v, const void* lengths,
            const void* dout, const void* delta, const void* lse, void* dq,
            int B, int Tn, int H, int D, float scale, cudaStream_t st) {
   const size_t smem = 4 * tile_bytes(D) + score_bytes();
-  auto kern = flash_bwd_dq_kernel<T, DMAX>;
+  auto kern = flash_bwd_dq_kernel<DMAX>;
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
   kern<<<grid_for(B, Tn, H), kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int32_t*>(lengths),
-      static_cast<const T*>(dout), static_cast<const float*>(delta),
-      static_cast<const float*>(lse), static_cast<T*>(dq), Tn, H, D, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int32_t*>(lengths),
+      static_cast<const float*>(dout), static_cast<const float*>(delta),
+      static_cast<const float*>(lse), static_cast<float*>(dq), Tn, H, D, scale);
   return (int)cudaGetLastError();
 }
 
@@ -521,25 +516,25 @@ int dq_finish(const void* dq_ws, void* dq, size_t n, float scale,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DMAX, bool FUSED>
+template <int DMAX, bool FUSED>
 int bwd_kv(const void* q, const void* k, const void* v, const void* lengths,
            const void* dout, const void* delta, const void* lse, void* dq_ws,
            void* dq, void* dk, void* dv, int B, int Tn, int H, int D,
            float scale, cudaStream_t st) {
   const size_t smem =
       4 * tile_bytes(D) + 2 * score_bytes() + 2 * kTile * sizeof(float);
-  auto kern = flash_bwd_kv_kernel<T, DMAX, FUSED>;
+  auto kern = flash_bwd_kv_kernel<DMAX, FUSED>;
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
   kern<<<grid_for(B, Tn, H), kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int32_t*>(lengths),
-      static_cast<const T*>(dout), static_cast<const float*>(delta),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int32_t*>(lengths),
+      static_cast<const float*>(dout), static_cast<const float*>(delta),
       static_cast<const float*>(lse), static_cast<float*>(dq_ws),
-      static_cast<T*>(dk), static_cast<T*>(dv), Tn, H, D, scale);
+      static_cast<float*>(dk), static_cast<float*>(dv), Tn, H, D, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess || !FUSED) return (int)e;
-  return dq_finish<T>(dq_ws, dq, (size_t)B * Tn * H * D, scale, st);
+  return dq_finish<float>(dq_ws, dq, (size_t)B * Tn * H * D, scale, st);
 }
 
 constexpr int kMaxD = 128;
@@ -548,8 +543,8 @@ constexpr int kMaxD = 128;
 
 // The kernels take D <= 128 (the path's D is 64); bf16 != 0 selects bf16
 // inputs and outputs, else float32. scale = 1 / sqrt(D) as a float (of the
-// head dim before any padding). The bf16 forward and fused backward need
-// D % 8 == 0 and 16-byte aligned bases (flash_attention_sm90.cuh).
+// head dim before any padding). The bf16 kernels need D % 8 == 0 and
+// 16-byte aligned bases (flash_attention_sm90.cuh).
 
 // q, k, v [B, T, H, D], lengths [B] -> out [B, T, H, D] and, when lse is
 // not null, lse [B, H, T] float32.
@@ -564,10 +559,8 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   if (bf16)
     return flash_fwd_bf16_sm90(q, k, v, lengths, out, lse, B, T, H, D, scale,
                                st);
-  return D <= 64 ? fwd<float, 64>(q, k, v, lengths, out, lse, B, T, H, D,
-                                  scale, st)
-                 : fwd<float, 128>(q, k, v, lengths, out, lse, B, T, H, D,
-                                   scale, st);
+  return D <= 64 ? fwd<64>(q, k, v, lengths, out, lse, B, T, H, D, scale, st)
+                 : fwd<128>(q, k, v, lengths, out, lse, B, T, H, D, scale, st);
 }
 
 // The forward's inputs, dO [B, T, H, D], delta [B, T, H] and lse [B, H, T]
@@ -582,15 +575,12 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   if (D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return D <= 64 ? bwd_dq<__nv_bfloat16, 64>(q, k, v, lengths, dout, delta,
-                                              lse, dq, B, T, H, D, scale, st)
-                   : bwd_dq<__nv_bfloat16, 128>(q, k, v, lengths, dout,
-                                               delta, lse, dq, B, T, H, D,
-                                               scale, st);
-  return D <= 64 ? bwd_dq<float, 64>(q, k, v, lengths, dout, delta, lse, dq,
-                                     B, T, H, D, scale, st)
-                 : bwd_dq<float, 128>(q, k, v, lengths, dout, delta, lse, dq,
-                                      B, T, H, D, scale, st);
+    return flash_bwd_dq_bf16_sm90(q, k, v, lengths, dout, delta, lse, dq, B,
+                                  T, H, D, scale, st);
+  return D <= 64 ? bwd_dq<64>(q, k, v, lengths, dout, delta, lse, dq, B, T,
+                              H, D, scale, st)
+                 : bwd_dq<128>(q, k, v, lengths, dout, delta, lse, dq, B, T,
+                               H, D, scale, st);
 }
 
 // As flash_bwd_dq -> dk, dv [B, T, H, D].
@@ -604,18 +594,14 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return D <= 64 ? bwd_kv<__nv_bfloat16, 64, false>(
-                         q, k, v, lengths, dout, delta, lse, nullptr, nullptr,
-                         dk, dv, B, T, H, D, scale, st)
-                   : bwd_kv<__nv_bfloat16, 128, false>(
-                         q, k, v, lengths, dout, delta, lse, nullptr, nullptr,
-                         dk, dv, B, T, H, D, scale, st);
-  return D <= 64 ? bwd_kv<float, 64, false>(q, k, v, lengths, dout, delta,
-                                            lse, nullptr, nullptr, dk, dv, B,
-                                            T, H, D, scale, st)
-                 : bwd_kv<float, 128, false>(q, k, v, lengths, dout, delta,
-                                             lse, nullptr, nullptr, dk, dv, B,
-                                             T, H, D, scale, st);
+    return flash_bwd_dkv_bf16_sm90(q, k, v, lengths, dout, delta, lse, dk, dv,
+                                   B, T, H, D, scale, st);
+  return D <= 64 ? bwd_kv<64, false>(q, k, v, lengths, dout, delta, lse,
+                                     nullptr, nullptr, dk, dv, B, T, H, D,
+                                     scale, st)
+                 : bwd_kv<128, false>(q, k, v, lengths, dout, delta, lse,
+                                      nullptr, nullptr, dk, dv, B, T, H, D,
+                                      scale, st);
 }
 
 // As flash_bwd_dq, with dq_ws a zeroed float32 [B, T, H, D] workspace ->
@@ -639,10 +625,9 @@ extern "C" int flash_bwd_fused(const void* q, const void* k, const void* v,
     return dq_finish<__nv_bfloat16>(dq_ws, dq, (size_t)B * T * H * D, scale,
                                     st);
   }
-  return D <= 64 ? bwd_kv<float, 64, true>(q, k, v, lengths, dout, delta, lse,
-                                           dq_ws, dq, dk, dv, B, T, H, D,
-                                           scale, st)
-                 : bwd_kv<float, 128, true>(q, k, v, lengths, dout, delta,
-                                            lse, dq_ws, dq, dk, dv, B, T, H,
-                                            D, scale, st);
+  return D <= 64 ? bwd_kv<64, true>(q, k, v, lengths, dout, delta, lse,
+                                    dq_ws, dq, dk, dv, B, T, H, D, scale, st)
+                 : bwd_kv<128, true>(q, k, v, lengths, dout, delta, lse,
+                                     dq_ws, dq, dk, dv, B, T, H, D, scale,
+                                     st);
 }

@@ -1,14 +1,17 @@
-// Hopper (sm_90a) kernels for the bf16 flash-attention forward and fused
-// backward: wgmma on the tensor cores for every product, TMA loads into a
-// ring of shared-memory tiles with mbarriers, one producer warp.
+// Hopper (sm_90a) kernels for the bf16 flash-attention forward and the
+// three backward kernels: wgmma on the tensor cores for every product, TMA
+// loads into a ring of shared-memory tiles with mbarriers, one producer warp.
 //
 // Replaces, for bf16 inputs, the Pallas kernels of
 // lipreading_tpu/ops/flash_attention.py:
 //   forward         <- `_flash_kernel` (:74, via `_flash_fwd_impl`)
 //   fused backward  <- `_bwd_fused_kernel` (:326, via `_flash_bwd_fused_impl`)
-// flash_attention.cu's C entries `flash_fwd` and `flash_bwd_fused` call
-// these for bf16; the float32 instances stay on the CUDA cores there, since
-// no tensor-core type meets the float32 limit (TF32 keeps ~3 digits).
+//   two-pass dq     <- `_bwd_dq_kernel` (:228, via `_flash_bwd_impl`)
+//   two-pass dk, dv <- `_bwd_dkv_kernel` (:274, via `_flash_bwd_impl`)
+// flash_attention.cu's C entries `flash_fwd`, `flash_bwd_fused`,
+// `flash_bwd_dq` and `flash_bwd_dkv` call these for bf16; the float32
+// instances stay on the CUDA cores there, since no tensor-core type meets
+// the float32 limit (TF32 keeps ~3 digits).
 //
 // The function is the JAX kernels' (see flash_attention.cu's header):
 // s = (q . k) / sqrt(Dh) in float32, keys at or past the length at -1e30,
@@ -18,21 +21,23 @@
 // it is split into hi = bf16(x) and lo = bf16(x - hi), and both go through
 // the tensor cores into one float32 accumulator. That keeps ~16 bits of P
 // and dS (a single bf16 rounding would be another function), for 1.5x the
-// forward's tensor-core work and 8/5 of the backward's.
+// forward's tensor-core work, 8/5 of the fused backward's, 4/3 of dq's and
+// 3/2 of dk/dv's.
 //
 // Bound on the H100: operations (at T 1024 a forward does ~4 B H T^2 Dh
 // FLOPs on 4 B T H Dh 2-byte values, far above the bf16 ridge of ~295
 // FLOP/byte).
 //
-// Layout. q, k, v, dO, out, dk, dv are [B, T, H, D] bf16 with D % 8 == 0
-// and 16-byte aligned bases (the wrapper pads D otherwise), read through
-// 4-D TMA maps with dims (D, H, T, B) and box (64, 1, 64, 1): 64 rows of
-// 64 columns, one 128-byte row each, 128-byte swizzled, the pattern the
-// wgmma descriptors name. A head dim up to 64 takes one box per tile, up to
-// 128 two ("halves"); TMA fills columns past D and rows past T with zeros.
+// Layout. q, k, v, dO, out, dq, dk, dv are [B, T, H, D] bf16 with
+// D % 8 == 0 and 16-byte aligned bases (the wrapper pads D otherwise), read
+// through 4-D TMA maps with dims (D, H, T, B) and box (64, 1, 64, 1): 64
+// rows of 64 columns, one 128-byte row each, 128-byte swizzled, the pattern
+// the wgmma descriptors name. A head dim up to 64 takes one box per tile,
+// up to 128 two ("halves"); TMA fills columns past D and rows past T with
+// zeros.
 //
 // Blocks: 2 consumer warpgroups (64 rows each) and a producer: one warp
-// in the forward, a warpgroup in the backward (see kBwdThreads).
+// in the forward, a warpgroup in the backwards (see kBwdThreads).
 //   forward: one block per (128-query tile, b h). The producer loads the Q
 //     tile once, then K/V tiles of 64 keys below the length into a 3-stage
 //     ring. Each consumer: S = Q K^T (shared x shared), the online softmax
@@ -47,6 +52,18 @@
 //     forms dQ = dS K over the block's 128 keys and adds it into the
 //     float32 workspace with float4 atomics. At Dh 128 a block takes 64
 //     keys and its warpgroups split the columns instead (BwdSplit).
+//   two-pass dk, dv: the fused backward without dQ (bwd_kernel<DP, false>:
+//     no dS^T in shared memory, no barrier between the warpgroups, no
+//     atomics).
+//   two-pass dq: shaped like the forward, one block per (128-query tile,
+//     b h). The producer loads the Q and dO tiles once, then K/V tiles of
+//     64 keys below the length into a 4-stage ring. Each consumer, per key
+//     tile: S = Q K^T and dP = dO V^T (one group), P = exp(S - lse) and
+//     dS = P (dP - delta) in registers (lse is known: no online softmax),
+//     dQ += dS K with dS's hi and lo halves as register A operands (K
+//     N-major); dq = dQ / sqrt(Dh) is stored once, as bf16.
+//   The two passes write every output once, in a fixed order: dq, dk and
+//   dv are the same bytes from launch to launch.
 // Every mbarrier wait traps after ~2^26 polls, so a phase error fails the
 // launch instead of hanging the card.
 
@@ -539,7 +556,7 @@ struct BwdSplit {
   static constexpr int n = cols ? 64 : DP;        // columns a warpgroup owns
 };
 
-template <int DP>
+template <int DP, bool DQ>
 struct BwdSmem {
   static constexpr int NH = DP / 64;
   static constexpr int tiles = BwdSplit<DP>::tiles;
@@ -547,9 +564,9 @@ struct BwdSmem {
   static constexpr int v = k + tiles * NH * kBoxBytes;      // [tiles][NH]
   static constexpr int q = v + tiles * NH * kBoxBytes;      // [stages][NH]
   static constexpr int g = q + kBwdStages * NH * kBoxBytes; // dO, the same
-  // dS^T hi and lo: [q tile parity][key tile][hi, lo] boxes
+  // dS^T hi and lo, with DQ: [q tile parity][key tile][hi, lo] boxes
   static constexpr int ds = g + kBwdStages * NH * kBoxBytes;
-  static constexpr int lse = ds + 2 * tiles * 2 * kBoxBytes;
+  static constexpr int lse = ds + (DQ ? 2 * tiles * 2 * kBoxBytes : 0);
   static constexpr int delta = lse + kBwdStages * kRows * 4;  // [stages][64]
   static constexpr int bars = delta + kBwdStages * kRows * 4;
   static constexpr int bytes = bars + (1 + 2 * kBwdStages) * 8 + 1024;
@@ -561,7 +578,10 @@ __device__ __forceinline__ int swizzled(int row, int col) {
   return row * 128 + (((col >> 3) ^ (row & 7)) << 4) + (col & 7) * 2;
 }
 
-template <int DP>
+// dK and dV of a block's keys over every query tile and, with DQ, dQ added
+// into the float32 workspace dq_ws (the fused backward); without DQ the
+// second pass of the two-pass backward (dq_ws unused).
+template <int DP, bool DQ>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 bwd_kernel(const __grid_constant__ CUtensorMap mq,
            const __grid_constant__ CUtensorMap mk,
@@ -572,7 +592,7 @@ bwd_kernel(const __grid_constant__ CUtensorMap mq,
            float* __restrict__ dq_ws, __nv_bfloat16* __restrict__ dk,
            __nv_bfloat16* __restrict__ dv, int Tn, int H, int D,
            float scale) {
-  using L = BwdSmem<DP>;
+  using L = BwdSmem<DP, DQ>;
   using W = BwdSplit<DP>;
   constexpr int NH = L::NH;
   constexpr int NW = W::n;
@@ -734,7 +754,7 @@ bwd_kernel(const __grid_constant__ CUtensorMap mq,
       }
       wg_commit();
       // (with split columns both warpgroups hold the same dS^T: one writes)
-      if (!W::cols || wg == 0) {
+      if (DQ && (!W::cols || wg == 0)) {
         uint8_t* ds =
             sm + L::ds + ((qt & 1) * W::tiles + tile) * 2 * kBoxBytes;
 #pragma unroll
@@ -751,6 +771,7 @@ bwd_kernel(const __grid_constant__ CUtensorMap mq,
       wg_wait();
       fence_regs(gk);
       mbar_arrive(&empty[s]);  // Q and dO of this stage are consumed
+      if constexpr (!DQ) continue;
       // the block's dS^T is in shared memory; the buffer of this parity is
       // written again two tiles on, after the next barrier, which a
       // warpgroup reading it now reaches only when its dQ is done
@@ -811,6 +832,169 @@ bwd_kernel(const __grid_constant__ CUtensorMap mq,
         *reinterpret_cast<__nv_bfloat162*>(dv + o) =
             __floats2bfloat162_rn(gv[i], gv[i + 1]);
       }
+    }
+  }
+}
+
+// --- two-pass backward: dq --------------------------------------------------
+
+template <int DP>
+struct DqSmem {
+  static constexpr int NH = DP / 64;
+  static constexpr int q = 0;                                // [2][NH] boxes
+  static constexpr int g = q + kConsumers * NH * kBoxBytes;  // dO, the same
+  static constexpr int k = g + kConsumers * NH * kBoxBytes;  // [stages][NH]
+  static constexpr int v = k + kBwdStages * NH * kBoxBytes;  // [stages][NH]
+  static constexpr int bars = v + kBwdStages * NH * kBoxBytes;
+  static constexpr int bytes = bars + (1 + 2 * kBwdStages) * 8 + 1024;
+};
+
+// dq of a block's 128 queries over the key tiles below the length. The
+// consumers hold S, dP, dS's halves and dQ (32 + 32 + 32 + DP / 2 a
+// thread): at Dh 128 that needs setmaxnreg's 224, as the fused backward.
+template <int DP>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+bwd_dq_kernel(const __grid_constant__ CUtensorMap mq,
+              const __grid_constant__ CUtensorMap mk,
+              const __grid_constant__ CUtensorMap mv,
+              const __grid_constant__ CUtensorMap mg,
+              const int32_t* __restrict__ lengths,
+              const float* __restrict__ delta, const float* __restrict__ lse,
+              __nv_bfloat16* __restrict__ dq, int Tn, int H, int D,
+              float scale) {
+  using L = DqSmem<DP>;
+  constexpr int NH = L::NH;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::bars);
+  uint64_t* qg_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + kBwdStages;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.x * (kConsumers * kRows);
+  const int len = min(max(lengths[b], 0), Tn);
+  // key tiles past the length have P = 0 everywhere: skipping them is exact
+  const int nk = (len + kRows - 1) / kRows;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qg_full, 1);
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer warpgroup; thread 0 loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0 && nk > 0) {
+      mbar_arrive_tx(qg_full, 2 * kConsumers * NH * kBoxBytes);
+      for (int w = 0; w < kConsumers; ++w)
+        for (int hh = 0; hh < NH; ++hh) {
+          tma_load(sm + L::q + (w * NH + hh) * kBoxBytes, &mq, qg_full,
+                   64 * hh, h, q0 + kRows * w, b);
+          tma_load(sm + L::g + (w * NH + hh) * kBoxBytes, &mg, qg_full,
+                   64 * hh, h, q0 + kRows * w, b);
+        }
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kBwdStages;
+        mbar_wait(&empty[s], ((kt / kBwdStages) & 1) ^ 1);
+        mbar_arrive_tx(&full[s], 2 * NH * kBoxBytes);
+        for (int hh = 0; hh < NH; ++hh) {
+          tma_load(sm + L::k + (s * NH + hh) * kBoxBytes, &mk, &full[s],
+                   64 * hh, h, kRows * kt, b);
+          tma_load(sm + L::v + (s * NH + hh) * kBoxBytes, &mv, &full[s],
+                   64 * hh, h, kRows * kt, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    const int wg = threadIdx.x / 128 - 1;
+    const int lane = threadIdx.x % 32;
+    const int r0 = 16 * ((threadIdx.x % 128) / 32) + lane / 4;
+    const int t0 = q0 + kRows * wg + r0;  // this thread's rows: +0, +8
+    // their lse and delta (0 past T: rows that are never written)
+    float lr[2], er[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int t = t0 + 8 * j;
+      lr[j] = t < Tn ? lse[(size_t)bh * Tn + t] : 0.0f;
+      er[j] = t < Tn ? delta[((size_t)b * Tn + t) * H + h] : 0.0f;
+    }
+    const uint8_t* sQ = sm + L::q + wg * NH * kBoxBytes;
+    const uint8_t* sG = sm + L::g + wg * NH * kBoxBytes;
+    float acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
+
+    if (nk > 0) mbar_wait(qg_full, 0);
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % kBwdStages;
+      mbar_wait(&full[s], (kt / kBwdStages) & 1);
+      const uint8_t* sK = sm + L::k + s * NH * kBoxBytes;
+      const uint8_t* sV = sm + L::v + s * NH * kBoxBytes;
+
+      // S = Q K^T and dP = dO V^T, one group
+      float sc[32], dp[32];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const int off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+        mma_ss<64, 0, 0>(sc, desc(sQ + off, kLboK), desc(sK + off, kLboK),
+                         kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const int off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+        mma_ss<64, 0, 0>(dp, desc(sG + off, kLboK), desc(sV + off, kLboK),
+                         kk > 0);
+      }
+      wg_commit();
+      wg_wait();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // dS = P (dP - delta), P = exp(S / sqrt(Dh) - lse), 0 at keys at or
+      // past the length
+      const int k0 = kRows * kt;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int j = (i / 2) % 2;
+        const float p = k0 + frag_col(i, lane) < len
+                            ? expf(sc[i] * scale - lr[j])
+                            : 0.0f;
+        dp[i] = p * (dp[i] - er[j]);
+      }
+
+      // dQ += dS K, dS as hi + lo; K is N-major here
+      uint32_t ah[4][4], al[4][4];
+      split_bf16(dp, ah, al);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db = desc(sK + kk * 16 * 128, kLboHalf);
+        mma_rs<DP, 1>(acc, ah[kk], db, 1);
+        mma_rs<DP, 1>(acc, al[kk], db, 1);
+      }
+      wg_commit();
+      wg_wait();
+      fence_regs(acc);
+      mbar_arrive(&empty[s]);  // K and V of this stage are consumed
+    }
+
+    const size_t rs = (size_t)H * D;
+    const size_t base = ((size_t)b * Tn * H + h) * D;
+#pragma unroll
+    for (int i = 0; i < DP / 2; i += 2) {
+      const int t = t0 + ((i / 2) % 2) * 8;
+      const int d = frag_col(i, lane);
+      if (t < Tn && d < D)
+        *reinterpret_cast<__nv_bfloat162*>(dq + base + (size_t)t * rs + d) =
+            __floats2bfloat162_rn(acc[i] * scale, acc[i + 1] * scale);
     }
   }
 }
@@ -885,21 +1069,42 @@ int fwd(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
   return (int)cudaGetLastError();
 }
 
-template <int DP>
-int bwd(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
-        const CUtensorMap& mg, const void* lengths, const void* delta,
+// The TMA maps of q, k, v and dO.
+bool make_maps(CUtensorMap (&m)[4], const void* q, const void* k,
+               const void* v, const void* dout, int B, int T, int H, int D) {
+  return make_map(&m[0], q, B, T, H, D) && make_map(&m[1], k, B, T, H, D) &&
+         make_map(&m[2], v, B, T, H, D) && make_map(&m[3], dout, B, T, H, D);
+}
+
+template <int DP, bool DQ>
+int bwd(const CUtensorMap (&m)[4], const void* lengths, const void* delta,
         const void* lse, void* dq_ws, void* dk, void* dv, int B, int T, int H,
         int D, float scale, cudaStream_t st) {
-  auto kern = bwd_kernel<DP>;
-  cudaError_t e = allow_smem(kern, BwdSmem<DP>::bytes);
+  auto kern = bwd_kernel<DP, DQ>;
+  cudaError_t e = allow_smem(kern, BwdSmem<DP, DQ>::bytes);
   if (e != cudaSuccess) return (int)e;
   const int keys = BwdSplit<DP>::tiles * kRows;  // a block's keys
   const dim3 grid((T + keys - 1) / keys, B * H);
-  kern<<<grid, kBwdThreads, BwdSmem<DP>::bytes, st>>>(
-      mq, mk, mv, mg, static_cast<const int32_t*>(lengths),
+  kern<<<grid, kBwdThreads, BwdSmem<DP, DQ>::bytes, st>>>(
+      m[0], m[1], m[2], m[3], static_cast<const int32_t*>(lengths),
       static_cast<const float*>(delta), static_cast<const float*>(lse),
       static_cast<float*>(dq_ws), static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), T, H, D, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+int bwd_dq(const CUtensorMap (&m)[4], const void* lengths, const void* delta,
+           const void* lse, void* dq, int B, int T, int H, int D, float scale,
+           cudaStream_t st) {
+  auto kern = bwd_dq_kernel<DP>;
+  cudaError_t e = allow_smem(kern, DqSmem<DP>::bytes);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((T + kConsumers * kRows - 1) / (kConsumers * kRows), B * H);
+  kern<<<grid, kBwdThreads, DqSmem<DP>::bytes, st>>>(
+      m[0], m[1], m[2], m[3], static_cast<const int32_t*>(lengths),
+      static_cast<const float*>(delta), static_cast<const float*>(lse),
+      static_cast<__nv_bfloat16*>(dq), T, H, D, scale);
   return (int)cudaGetLastError();
 }
 
@@ -925,13 +1130,42 @@ int flash_bwd_fused_bf16_sm90(const void* q, const void* k, const void* v,
                               const void* delta, const void* lse, void* dq_ws,
                               void* dk, void* dv, int B, int T, int H, int D,
                               float scale, cudaStream_t stream) {
-  if (!tma_ok(D, {q, k, v, dout, dk, dv})) return (int)cudaErrorInvalidValue;
-  CUtensorMap mq, mk, mv, mg;
-  if (!make_map(&mq, q, B, T, H, D) || !make_map(&mk, k, B, T, H, D) ||
-      !make_map(&mv, v, B, T, H, D) || !make_map(&mg, dout, B, T, H, D))
+  CUtensorMap m[4];
+  if (!tma_ok(D, {q, k, v, dout, dk, dv}) ||
+      !make_maps(m, q, k, v, dout, B, T, H, D))
     return (int)cudaErrorInvalidValue;
-  return D <= 64 ? bwd<64>(mq, mk, mv, mg, lengths, delta, lse, dq_ws, dk,
-                           dv, B, T, H, D, scale, stream)
-                 : bwd<128>(mq, mk, mv, mg, lengths, delta, lse, dq_ws, dk,
-                            dv, B, T, H, D, scale, stream);
+  return D <= 64 ? bwd<64, true>(m, lengths, delta, lse, dq_ws, dk, dv, B, T,
+                                 H, D, scale, stream)
+                 : bwd<128, true>(m, lengths, delta, lse, dq_ws, dk, dv, B, T,
+                                  H, D, scale, stream);
+}
+
+int flash_bwd_dq_bf16_sm90(const void* q, const void* k, const void* v,
+                           const void* lengths, const void* dout,
+                           const void* delta, const void* lse, void* dq, int B,
+                           int T, int H, int D, float scale,
+                           cudaStream_t stream) {
+  CUtensorMap m[4];
+  if (!tma_ok(D, {q, k, v, dout, dq}) ||
+      !make_maps(m, q, k, v, dout, B, T, H, D))
+    return (int)cudaErrorInvalidValue;
+  return D <= 64 ? bwd_dq<64>(m, lengths, delta, lse, dq, B, T, H, D, scale,
+                              stream)
+                 : bwd_dq<128>(m, lengths, delta, lse, dq, B, T, H, D, scale,
+                               stream);
+}
+
+int flash_bwd_dkv_bf16_sm90(const void* q, const void* k, const void* v,
+                            const void* lengths, const void* dout,
+                            const void* delta, const void* lse, void* dk,
+                            void* dv, int B, int T, int H, int D, float scale,
+                            cudaStream_t stream) {
+  CUtensorMap m[4];
+  if (!tma_ok(D, {q, k, v, dout, dk, dv}) ||
+      !make_maps(m, q, k, v, dout, B, T, H, D))
+    return (int)cudaErrorInvalidValue;
+  return D <= 64 ? bwd<64, false>(m, lengths, delta, lse, nullptr, dk, dv, B,
+                                  T, H, D, scale, stream)
+                 : bwd<128, false>(m, lengths, delta, lse, nullptr, dk, dv, B,
+                                   T, H, D, scale, stream);
 }

@@ -21,3 +21,16 @@ int flash_bwd_fused_bf16_sm90(const void* q, const void* k, const void* v,
                               const void* delta, const void* lse, void* dq_ws,
                               void* dk, void* dv, int B, int T, int H, int D,
                               float scale, cudaStream_t stream);
+
+// The two-pass backward, as the fused one: -> dq [B, T, H, D] bf16 (the
+// first pass), and dk, dv (the second). No workspace and no atomics.
+int flash_bwd_dq_bf16_sm90(const void* q, const void* k, const void* v,
+                           const void* lengths, const void* dout,
+                           const void* delta, const void* lse, void* dq, int B,
+                           int T, int H, int D, float scale,
+                           cudaStream_t stream);
+int flash_bwd_dkv_bf16_sm90(const void* q, const void* k, const void* v,
+                            const void* lengths, const void* dout,
+                            const void* delta, const void* lse, void* dk,
+                            void* dv, int B, int T, int H, int D, float scale,
+                            cudaStream_t stream);

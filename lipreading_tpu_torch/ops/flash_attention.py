@@ -10,8 +10,8 @@ keys at or past the length masked with -1e30, the output ``acc / max(l,
 1e-30)`` cast to q's type, and a sample of length 0 gives exact zeros. At
 bf16 the two are different functions.
 
-Four kernels (``csrc/flash_attention.cu``; in bf16 the forward and the
-fused backward are the Hopper kernels of ``csrc/flash_attention_sm90.cu``,
+Four kernels (``csrc/flash_attention.cu`` in float32, on the CUDA cores; in
+bf16 all four are the Hopper kernels of ``csrc/flash_attention_sm90.cu``,
 tensor cores with P and dS split into bf16 hi + lo), each with its plain
 PyTorch version beside it:
 
@@ -20,7 +20,8 @@ PyTorch version beside it:
 * ``flash_bwd_fused`` (dq, dk, dv in one sweep) replaces
   ``_bwd_fused_kernel``;
 * ``flash_bwd_dq`` and ``flash_bwd_dkv`` (the two-pass backward) replace
-  ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``.
+  ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``. They write dq, dk and dv
+  without atomics, so their results are the same bytes from run to run.
 
 Each wrapper runs its plain version only for tensors on the CPU; on CUDA
 tensors it launches its kernel or raises. ``FlashAttention`` is the autograd
@@ -30,7 +31,8 @@ policies (``bwd``):
 * ``"xla"``: the forward kernel without lse; the backward is autograd
   through ``reference_attend`` recomputed (plain PyTorch; the [T, T] scores
   exist transiently in the backward);
-* ``"pallas"``: the forward kernel with lse, then the two-pass pair;
+* ``"pallas"``: the forward kernel with lse, then the two-pass pair (the
+  reproducible backward);
 * ``"fused"``: the forward kernel with lse, then the fused kernel;
 * ``"auto"``: ``"xla"`` below ``AUTO_FUSED_MIN_T`` frames, ``"fused"`` at or
   above it.
@@ -198,10 +200,10 @@ def _geometry(q):
 
 
 def _tma_ready(xs, bf16: int):
-    """The bf16 forward and fused backward kernels read [B, T, H, Dh]
-    through TMA maps, which need each stride (Dh * 2 bytes) and each base to
-    be a multiple of 16 bytes. Where one is not (Dh 12, say, or a view at an
-    odd offset), the inputs are copied into zero-padded [B, T, H, Dp]
+    """The bf16 kernels read [B, T, H, Dh] through TMA maps, which need
+    each stride (Dh * 2 bytes) and each base to be a multiple of 16 bytes.
+    Where one is not (Dh 12, say, or a view at an odd offset), the inputs
+    are copied into zero-padded [B, T, H, Dp]
     buffers, Dp = Dh rounded up to 8, as the JAX package pads Dh in
     ``_prep``: zero columns add nothing to q . k and give zero output
     columns, which the caller slices off; the scale stays 1/sqrt(Dh).
@@ -286,15 +288,17 @@ def flash_bwd_dq(q, k, v, lengths, dout, delta, lse):
     backward. On CPU tensors it runs ``flash_bwd_dq_reference``."""
     if not _check("flash_bwd_dq", q, k, v, lengths, dout, delta, lse):
         return flash_bwd_dq_reference(q, k, v, lengths, dout, delta, lse)
-    ins = _contiguous(q, k, v, lengths, dout, delta, lse)
+    q, k, v, lengths, dout, delta, lse = _contiguous(q, k, v, lengths, dout,
+                                                     delta, lse)
     B, T, H, Dh, bf16, scale = _geometry(q)
+    (q, k, v, dout), D = _tma_ready([q, k, v, dout], bf16)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     err = kernels.lib().flash_bwd_dq(
-        *(x.data_ptr() for x in ins), dq.data_ptr(),
-        B, T, H, Dh, bf16, scale, kernels.stream_ptr(q.device))
+        *(x.data_ptr() for x in (q, k, v, lengths, dout, delta, lse)),
+        dq.data_ptr(), B, T, H, D, bf16, scale, kernels.stream_ptr(q.device))
     kernels.check(err, "flash_bwd_dq")
     flash_bwd_dq.launches += 1
-    return dq
+    return dq[..., :Dh].contiguous() if D != Dh else dq
 
 
 def flash_bwd_dkv(q, k, v, lengths, dout, delta, lse):
@@ -302,16 +306,20 @@ def flash_bwd_dkv(q, k, v, lengths, dout, delta, lse):
     backward. On CPU tensors it runs ``flash_bwd_dkv_reference``."""
     if not _check("flash_bwd_dkv", q, k, v, lengths, dout, delta, lse):
         return flash_bwd_dkv_reference(q, k, v, lengths, dout, delta, lse)
-    ins = _contiguous(q, k, v, lengths, dout, delta, lse)
+    q, k, v, lengths, dout, delta, lse = _contiguous(q, k, v, lengths, dout,
+                                                     delta, lse)
     B, T, H, Dh, bf16, scale = _geometry(q)
+    (q, k, v, dout), D = _tma_ready([q, k, v, dout], bf16)
     dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
               for _ in range(2))
     err = kernels.lib().flash_bwd_dkv(
-        *(x.data_ptr() for x in ins), dk.data_ptr(),
-        dv.data_ptr(), B, T, H, Dh, bf16, scale,
+        *(x.data_ptr() for x in (q, k, v, lengths, dout, delta, lse)),
+        dk.data_ptr(), dv.data_ptr(), B, T, H, D, bf16, scale,
         kernels.stream_ptr(q.device))
     kernels.check(err, "flash_bwd_dkv")
     flash_bwd_dkv.launches += 1
+    if D != Dh:
+        dk, dv = (x[..., :Dh].contiguous() for x in (dk, dv))
     return dk, dv
 
 

@@ -291,3 +291,67 @@ def test_flash_rejects_mixed_devices(cuda):
         fa.flash_fwd(q.to(cuda), k.to(cuda), v.to(cuda), ln)
     with pytest.raises(TypeError):
         fa.flash_fwd(*(x.to(cuda) for x in (q, k, v)), ln.to(cuda)[:0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,D,lengths",
+                         [(4, 1024, 4, 64, [1024, 1000, 517, 0]),
+                          (2, 77, 2, 100, [77, 5])])
+def test_flash_two_pass_is_bit_identical(cuda, dtype, B, T, H, D, lengths):
+    """The two-pass backward writes dq, dk and dv without atomics, in a
+    fixed order: two launches on the same inputs give the same bytes."""
+    q, k, v, g, ln = (x.to(cuda) for x in _flash_case(T + D, B, T, H, D,
+                                                      lengths, dtype))
+    out, lse = fa.flash_fwd(q, k, v, ln, return_lse=True)
+    gg, delta = fa.bwd_inputs(out, g, ln)
+    runs = [(fa.flash_bwd_dq(q, k, v, ln, gg, delta, lse),
+             *fa.flash_bwd_dkv(q, k, v, ln, gg, delta, lse))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,D,lengths", [(2, 33, 1, 12, [33, 20]),
+                                             (2, 77, 2, 100, [77, 5])])
+def test_flash_pallas_policy_takes_the_padded_copy(cuda, B, T, H, D, lengths):
+    """bf16 head dims whose rows are not a multiple of 16 bytes (Dh 12) or
+    that end mid-box (Dh 100), through the autograd function with
+    ``bwd="pallas"``: one launch of each pass, grads within 1e-2 of the
+    plain backward on the forward kernel's out and lse."""
+    q, k, v, g, ln = (x.to(cuda) for x in _flash_case(T + D, B, T, H, D,
+                                                      lengths,
+                                                      torch.bfloat16))
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    before = [w.launches for w in fa.WRAPPERS]
+    fa.flash_attention(*leaves, ln, bwd="pallas").backward(g)
+    torch.cuda.synchronize()
+    assert [w.launches for w in fa.WRAPPERS] == [b + n for b, n in
+                                                 zip(before, (1, 0, 1, 1))]
+    out, lse = fa.flash_fwd(q, k, v, ln, return_lse=True)
+    gg, delta = fa.bwd_inputs(out, g, ln)
+    want = fa._bwd_reference(q, k, v, ln, gg, delta, lse)
+    for x, w in zip(leaves, want):
+        assert x.grad.shape == w.shape
+        assert torch.isfinite(x.grad.float()).all()
+        assert _rel(x.grad, w) <= FLASH_REL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_flash_two_pass_long_clip_matches_plain(cuda):
+    """The bf16 two-pass backward at T 8192 (the long shape of
+    chip_smoke.py's [flash]) against its plain versions: dq, dk, dv within
+    1e-2 of the largest."""
+    q, k, v, g, ln = (x.to(cuda) for x in _flash_case(
+        8193, 2, 8192, 4, 64, [8192, 6001], torch.bfloat16))
+    out, lse = fa.flash_fwd(q, k, v, ln, return_lse=True)
+    gg, delta = fa.bwd_inputs(out, g, ln)
+    got = (fa.flash_bwd_dq(q, k, v, ln, gg, delta, lse),
+           *fa.flash_bwd_dkv(q, k, v, ln, gg, delta, lse))
+    want = fa._bwd_reference(q, k, v, ln, gg, delta, lse)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert torch.isfinite(a.float()).all()
+        assert _rel(a, w) <= FLASH_REL[torch.bfloat16]

@@ -11,7 +11,10 @@ float32 tensors and holds the result against ``flash_fwd_reference`` /
 ``_bwd_reference`` and against the JAX package's ``_flash_fwd_impl`` /
 ``_flash_bwd_fused_impl`` (Pallas in interpret mode), all in float32 on the
 same inputs: within 2e-5 of the largest value of each output, the float32
-limit, before any cast of the output. A single bf16 rounding of P and dS
+limit, before any cast of the output. The two-pass backward's kernels are
+emulated the same way, against ``_bwd_reference`` and the JAX
+``_flash_bwd_impl``: dq in query blocks over the key tiles (dS.K split),
+dk and dv as the fused kernel forms them, without dQ. A single bf16 rounding of P and dS
 (what FlashAttention-2/3 and SDPA do) must break that limit: it would still
 pass the card's bf16 limit of 1e-2, so only this test tells the two designs
 apart.
@@ -113,6 +116,36 @@ def emulate_bwd(q, k, v, lengths, dout, delta, lse, split=True):
     return tuple(x.transpose(1, 2) for x in (dq * scale, dk * scale, dv))
 
 
+def emulate_dq(q, k, v, lengths, dout, delta, lse, split=True):
+    """The two-pass dq kernel's arithmetic -> dq (float32): every query
+    row, key tiles below the length; P = exp(S - lse) and dS in float32,
+    dQ += dS K with dS split."""
+    B, T, H, Dh = q.shape
+    scale = 1.0 / math.sqrt(Dh)
+    dq = torch.zeros(B, H, T, Dh)
+    for b in range(B):
+        n = min(max(int(lengths[b]), 0), T)
+        qb = q[b].transpose(0, 1)                       # [H, T, Dh]
+        gb = dout[b].transpose(0, 1)
+        lse_b = lse[b][..., None]                       # [H, T, 1]
+        del_b = delta[b].transpose(0, 1)[..., None]
+        for k0 in range(0, n, TILE):
+            kt = k[b, k0:k0 + TILE].transpose(0, 1)     # [H, keys, Dh]
+            vt = v[b, k0:k0 + TILE].transpose(0, 1)
+            kvalid = torch.arange(k0, k0 + kt.shape[1]) < n
+            s = (qb @ kt.transpose(1, 2)) * scale       # [H, T, keys]
+            p = torch.where(kvalid, torch.exp(s - lse_b), 0.0)
+            ds = p * (gb @ vt.transpose(1, 2) - del_b)
+            dq[b] += _tc(ds, kt, split)
+    return (dq * scale).transpose(1, 2)
+
+
+def emulate_dkv(q, k, v, lengths, dout, delta, lse, split=True):
+    """The two-pass dk/dv kernel's arithmetic -> dk, dv (float32): the
+    fused kernel's loop without dQ, so its dk and dv."""
+    return emulate_bwd(q, k, v, lengths, dout, delta, lse, split)[1:]
+
+
 def _rel(got, want):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
@@ -151,17 +184,18 @@ def test_forward_single_rounding_breaks_the_limit(case):
     assert _rel(out, tfa.flash_fwd_reference(q, k, v, ln)) > LIMIT
 
 
-def _bwd_case(case, with_jax=True):
+def _bwd_case(case, with_jax=True, impl=jfa._flash_bwd_fused_impl):
     """Inputs of the backward with the JAX forward's out and lse, and the
-    JAX fused backward's dq, dk, dv (float32, interpret mode); without JAX,
-    the plain forward's out and lse and no JAX result."""
+    JAX backward ``impl``'s dq, dk, dv (float32, interpret mode; the fused
+    one by default); without JAX, the plain forward's out and lse and no
+    JAX result."""
     (q, k, v, g), ln = _inputs(case, seed=case[1] + 1)
     if not with_jax:
         out, lse = tfa.flash_fwd_reference(q, k, v, ln, return_lse=True)
         return (q, k, v, ln, *tfa.bwd_inputs(out, g, ln), lse), None
     out, lse, j_lse = _jax_fwd(q, k, v, ln, raw=True)
     gg, delta = tfa.bwd_inputs(out, g, ln)
-    want_j = jfa._flash_bwd_fused_impl(
+    want_j = impl(
         *(jnp.asarray(x.numpy()) for x in (q, k, v)), jnp.asarray(ln.numpy()),
         jnp.asarray(out.numpy()), j_lse, jnp.asarray(gg.numpy()), 512, 512,
         None)
@@ -186,4 +220,35 @@ def test_fused_backward_single_rounding_breaks_the_limit(case):
     args, _ = _bwd_case(case, with_jax=False)
     got = emulate_bwd(*args, split=False)
     want = tfa._bwd_reference(*args)
+    assert max(_rel(a, b) for a, b in zip(got, want)) > LIMIT
+
+
+# the two-pass backward: dq from its own kernel, dk and dv from the other
+TWO_PASS = {"dq": (emulate_dq, slice(0, 1)), "dkv": (emulate_dkv, slice(1, 3))}
+
+
+@pytest.mark.parametrize("kernel", sorted(TWO_PASS))
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_two_pass_split_keeps_the_float32_function(case, kernel):
+    emulate, outs = TWO_PASS[kernel]
+    args, want_j = _bwd_case(case, impl=jfa._flash_bwd_impl)
+    got = emulate(*args)
+    got = (got,) if kernel == "dq" else got
+    want = tfa._bwd_reference(*args)[outs]
+    for ref in (want, want_j[outs]):
+        for a, b in zip(got, ref):
+            assert _rel(a, b) <= LIMIT
+    ln = args[3]
+    for b in np.flatnonzero((ln == 0).numpy()):
+        assert all(torch.all(x[b] == 0.0) for x in got)
+
+
+@pytest.mark.parametrize("kernel", sorted(TWO_PASS))
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_two_pass_single_rounding_breaks_the_limit(case, kernel):
+    emulate, outs = TWO_PASS[kernel]
+    args, _ = _bwd_case(case, with_jax=False)
+    got = emulate(*args, split=False)
+    got = (got,) if kernel == "dq" else got
+    want = tfa._bwd_reference(*args)[outs]
     assert max(_rel(a, b) for a, b in zip(got, want)) > LIMIT
