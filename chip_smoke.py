@@ -8,13 +8,26 @@ Phases, each of which must pass:
 1. build the CUDA kernels of ``lipreading_tpu_torch/csrc`` (one ``nvcc``
    per source, all started together, then one link; cached by a hash of
    the sources), print the build seconds, each kernel's registers and
-   spills (the Hopper flash kernels must not spill, and those that trade
-   registers with ``setmaxnreg`` must be built for its pool) and how many
-   ``HGMMA`` and ``UTMALDG`` instructions the library holds (both > 0);
+   spills (the Hopper flash and the CTC lattice kernels must not spill, and
+   those that trade registers with ``setmaxnreg`` must be built for its
+   pool), how many ``HGMMA`` and ``UTMALDG`` instructions the library holds
+   (both > 0) and how many ``LDGSTS`` (asynchronous copies) each CTC
+   lattice kernel holds (> 0 in each);
 2. print the card's name and power limit as ``nvidia-smi`` reports them;
 3. hold every kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, and time the kernel, the plain version and
-   one PyTorch yardstick beside it;
+   shapes the main path gives it, and time the kernel (CUDA events around
+   its bare C entry: the device time), the plain version and one PyTorch
+   yardstick beside it (by ``torch.profiler`` device time). ``[ctc]``:
+   both lattice kernels at the training path's shape (B 8, T 128, S 81),
+   the long-clip fine-tuning shape (B 4, T 1024, S 513) and S 121, 601,
+   1025 and 2049, whose skip transitions cross lane and warp boundaries;
+   two launches must give the same bytes, a planted fault (one skip flag
+   cleared) must break the limits the kernels meet; the kernels'
+   branch-free log1p must equal log1pf on every float in [0, 1]; each
+   kernel's device time beside its bounds: bytes, operations and the chain
+   of dependent steps (``ctc_chain_probe``), ``F.ctc_loss``'s device
+   time, and the kernels' device time under every K they are built for
+   (the same bytes as ``lattice_plan``'s choice);
 4. drive the serving path: fixture clips at 160x160 -> ``preprocess_clips``
    -> the released ``transformer_hybrid_universal4`` model at full width ->
    ``greedy_conf`` -> transcripts, with every kernel's launch count set to 0
@@ -53,7 +66,8 @@ Flash attention (``model.flash_attention=1``) adds three phases:
   ROIs); flash off beside it, reported;
 * ``[train-flash]``: fine-tuning on the long clips under each backward
   policy with the launches of each step counted (they are the flash rows'
-  ``launches``), one float32 step's gradient of pallas and fused against
+  ``launches``; one launch of each CTC lattice kernel a step is checked
+  too), one float32 step's gradient of pallas and fused against
   xla within limits that a planted fault must break, a fixed batch whose
   loss falls, and peak memory with flash on and off.
 
@@ -87,6 +101,19 @@ ROI_TOL = 1e-4
 CTC_NLL_RTOL = 1e-5
 CTC_GRAD_RTOL, CTC_GRAD_ATOL = 1e-3, 1e-5
 CTC_B, CTC_T = 8, 128       # the path's batch and longest time bucket
+CTC_REPLACES = {"fwd": "lipreading_tpu/ops/ctc_pallas.py:46",
+                "bwd": "lipreading_tpu/ops/ctc_pallas.py:79"}
+# correctness only: (case, B, T, L, first and last input length, range of
+# the others, timed). S 121 and 601 put skip transitions across lane and
+# warp boundaries of the kernels' plan; S 1025 and 2049 are the long
+# labels a fine-tuning run may reach
+CTC_EDGE_CASES = (("S121", 3, 160, 60, (150, 160), (121, 160), False),
+                  ("S601", 3, 700, 300, (640, 700), (601, 700), False),
+                  ("S1025", 2, 1100, 512, (1100, 1080), (1025, 1100), False),
+                  ("S2049", 2, 2100, 1024, (2100, 2060), (2049, 2100), False))
+# the chain probe's two step counts (one warp; its time per step is their
+# difference in time over their difference in steps)
+CHAIN_PROBE_STEPS = (2048, 34816)
 TRAIN_CLIPS = 12            # fixture clips of the training corpus
 TRAIN_STEPS = 10
 STAGE_STEPS = 3             # steps timed stage by stage
@@ -256,18 +283,35 @@ def fixture_batch():
     return frames, lengths, [c.text for c in clips]
 
 
+SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "UBLKCP")
+
+
 def sass_counts(path: str) -> dict:
-    """How many tensor-core (HGMMA) and TMA-load (UTMALDG) instructions
-    ``cuobjdump --dump-sass`` finds in the library."""
+    """How many tensor-core (HGMMA), TMA-load (UTMALDG), asynchronous copy
+    (LDGSTS) and bulk copy (UBLKCP) instructions ``cuobjdump --dump-sass``
+    finds in each kernel of the library -> {kernel name: {op: count}}."""
+    import re
+
     from lipreading_tpu_torch import kernels
 
     tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
     out = subprocess.run([tool, "--dump-sass", path], capture_output=True,
                          text=True, timeout=300)
     check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
-    return {op: sum(line.split()[1:2] == [op] or f" {op}." in line
-                    or f" {op} " in line for line in out.stdout.splitlines())
-            for op in ("HGMMA", "UTMALDG")}
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = kernel_name(m.group(1))
+            counts.setdefault(fn, dict.fromkeys(SASS_OPS, 0))
+            continue
+        if fn is None:
+            continue
+        for op in SASS_OPS:
+            if (line.split()[1:2] == [op] or f" {op}." in line
+                    or f" {op} " in line):
+                counts[fn][op] += 1
+    return counts
 
 
 def kernel_name(mangled: str) -> str:
@@ -292,11 +336,12 @@ def kernel_name(mangled: str) -> str:
 
 def phase_build():
     """Build, print each kernel's registers and spills as ptxas reports them
-    (the Hopper flash kernels must not spill; those that use setmaxnreg
-    must be built for its pool) and the SASS counts."""
+    (the Hopper flash and CTC lattice kernels must not spill; those that use
+    setmaxnreg must be built for its pool) and the SASS counts."""
     import re
 
     from lipreading_tpu_torch import kernels
+    from lipreading_tpu_torch.ops.ctc import LATTICE_K
 
     t0 = time.perf_counter()
     kernels.lib()
@@ -312,7 +357,7 @@ def phase_build():
             entry = f"{source}:{kernel_name(m.group(1))}"
         if "spill" in line or "registers" in line:
             log(f"[build] {entry} {line.strip()}")
-        if "sm90" in source:
+        if "sm90" in source or "ctc_lattice" in source:
             m = re.search(r"(\d+) bytes spill stores", line)
             if m:
                 spills[entry] = int(m.group(1))
@@ -321,7 +366,7 @@ def phase_build():
                 regs[entry] = int(m.group(1))
     if kernels.STATE.build_seconds:
         check(spills and not any(spills.values()),
-              f"Hopper flash kernels spill: {spills}")
+              f"Hopper flash or CTC lattice kernels spill: {spills}")
         # before any launch: a count below this would leave setmaxnreg
         # waiting for registers that no warp frees
         found = {e.split(":")[-1].split("<")[0] for e in regs}
@@ -330,11 +375,22 @@ def phase_build():
               f"Hopper setmaxnreg kernels built for {regs} registers, want "
               f"{SM90_BWD_REGS} (setmaxnreg's pool) for each of "
               f"{SM90_SETMAXNREG}")
-    counts = sass_counts(kernels.STATE.path)
+    by_kernel = sass_counts(kernels.STATE.path)
+    counts = {op: sum(c[op] for c in by_kernel.values()) for op in SASS_OPS}
     log(f"[build] SASS: {counts['HGMMA']} HGMMA (wgmma) and "
         f"{counts['UTMALDG']} UTMALDG (TMA load) instructions")
     check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
           f"no tensor-core or TMA instructions in the library: {counts}")
+    # the CTC lattice kernels fetch their emissions ahead of the chain by
+    # asynchronous copies: every instance must hold them
+    lattice = {k: c for k, c in by_kernel.items()
+               if k.startswith(("ctc_fwd_kernel", "ctc_bwd_kernel"))}
+    log("[build] SASS of the CTC lattice kernels: " + "; ".join(
+        f"{k} {c['LDGSTS']} LDGSTS, {c['UBLKCP']} UBLKCP"
+        for k, c in sorted(lattice.items())))
+    check(len(lattice) == 2 * len(LATTICE_K)
+          and all(c["LDGSTS"] + c["UBLKCP"] > 0 for c in lattice.values()),
+          f"CTC lattice kernels without asynchronous copies: {lattice}")
 
 
 def nvidia_smi_line() -> str:
@@ -388,6 +444,7 @@ def phase_kernels(frames, lengths, dev) -> list[dict]:
     import torch
     import torch.nn.functional as F
 
+    from lipreading_tpu_torch import kernels
     from lipreading_tpu_torch.ops import decode, roi
     from lipreading_tpu_torch.text import Vocab
 
@@ -422,21 +479,37 @@ def phase_kernels(frames, lengths, dev) -> list[dict]:
     grid = torch.stack([gx[:, None, :].expand(N, R, R),
                         gy[:, :, None].expand(N, R, R)], dim=-1)
     g4 = gray[:, None]
-    ms = time_ms(lambda: roi.sample_rois(gray, boxes_i, R, **kw))
+    lib_k = kernels.lib()
+    st = kernels.stream_ptr(gray.device)
+    out = torch.empty((N, R, R), dtype=torch.float32, device="cuda")
+
+    def bare():                     # the C entry alone (device time)
+        return lib_k.roi_sample(gray.data_ptr(), boxes_i.data_ptr(),
+                                out.data_ptr(), N, H, W, R, kw["mean"],
+                                kw["std"], 1, 0, st)
+
+    kernels.check(bare(), "bare roi_sample")
+    # the kernel's own device time (torch.profiler): a tiny kernel's events
+    # would time the host's launches while worker processes render clips
+    ms = device_ms(bare, 50)[0]
+    ev = time_ms(bare)
+    wrap = time_ms(lambda: roi.sample_rois(gray, boxes_i, R, **kw))
     plain = time_ms(lambda: roi.sample_rois_reference(gray, boxes_i, R, **kw))
-    lib = time_ms(lambda: F.grid_sample(g4, grid, mode="bilinear",
-                                        align_corners=False))
+    lib = device_ms(lambda: F.grid_sample(g4, grid, mode="bilinear",
+                                          align_corners=False), 50)[0]
     nbytes = roi_bytes_needed(boxes_i, False, H, W, R) + N * R * R * 4
     b_ms, b_by = bound_ms(nbytes, 10.0 * N * R * R)
-    log(f"[roi] N={N} H={H} W={W} R={R}: kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, F.grid_sample {lib:.4f} ms, bound "
-        f"{b_ms * 1e3:.3f} us ({b_by}, {nbytes} B)")
+    log(f"[roi] N={N} H={H} W={W} R={R}: kernel device {ms:.4f} ms (bare C "
+        f"entry, torch.profiler; CUDA events {ev:.4f}, wrapper {wrap:.4f}), "
+        f"plain {plain:.4f} ms, F.grid_sample "
+        f"device {lib:.4f} ms, bound {b_ms * 1e3:.3f} us ({b_by}, "
+        f"{nbytes} B), the kernel at {b_ms / ms:.1%} of it")
     rows.append(dict(
         name="roi_sampler", route="cuda",
         source="lipreading_tpu_torch/csrc/roi_sampler.cu",
         replaces="lipreading_tpu/ops/roi.py:107",
         launches=0, max_abs_err=max(errs.values()), ms=ms, plain_ms=plain,
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib, wrapper_ms=wrap))
 
     # --- CTC greedy: path shape plus the edge cases -------------------------
     V, blank = cfg.model.vocab_size, Vocab().blank_id
@@ -461,7 +534,17 @@ def phase_kernels(frames, lengths, dev) -> list[dict]:
         check(bad == 0, "CTC greedy disagrees with its plain version")
         worst = max(worst, bad)
     lg, ln = cases[0]
-    ms = time_ms(lambda: decode.ctc_greedy_ids(lg, ln, blank))
+    ids = torch.empty((B, T), dtype=torch.int32, device="cuda")
+    cnt = torch.empty((B,), dtype=torch.int32, device="cuda")
+
+    def bare():                     # the C entry alone (device time)
+        return lib_k.ctc_greedy(lg.data_ptr(), ln.data_ptr(), ids.data_ptr(),
+                                cnt.data_ptr(), B, T, V, blank, st)
+
+    kernels.check(bare(), "bare ctc_greedy")
+    ms = device_ms(bare, 50)[0]
+    ev = time_ms(bare)
+    wrap = time_ms(lambda: decode.ctc_greedy_ids(lg, ln, blank))
     plain = time_ms(lambda: decode.ctc_greedy_ids_reference(lg, ln, blank))
 
     def library():
@@ -473,21 +556,23 @@ def phase_kernels(frames, lengths, dev) -> list[dict]:
         out = torch.full((B, T + 1), blank, dtype=raw.dtype, device="cuda")
         return out.scatter_(1, pos, raw)[:, :T], keep.sum(1)
 
-    composite = time_ms(library)
+    composite = device_ms(library, 50)[0]
     valid = int(torch.clamp(ln, 0, T).sum().item())
     nbytes = valid * V * 4 + B * 4 + B * T * 4 + B * 4
     b_ms, b_by = bound_ms(nbytes, valid * V)
-    log(f"[greedy] B={B} T={T} V={V}: kernel {ms:.4f} ms, plain {plain:.4f} "
-        f"ms, argmax+mask+cumsum+scatter {composite:.4f} ms (a yardstick of "
-        f"several calls: no single PyTorch call computes this, so "
-        f"library_ms is null), bound {b_ms * 1e3:.4f} us ({b_by}, "
-        f"{nbytes} B)")
+    log(f"[greedy] B={B} T={T} V={V}: kernel device {ms:.4f} ms (bare C "
+        f"entry, torch.profiler; CUDA events {ev:.4f}, wrapper {wrap:.4f}), "
+        f"plain {plain:.4f} ms, argmax+mask+"
+        f"cumsum+scatter device {composite:.4f} ms (a yardstick of several "
+        f"calls: no single PyTorch call computes this, so library_ms is "
+        f"null), bound {b_ms * 1e3:.4f} us ({b_by}, {nbytes} B), the kernel "
+        f"at {b_ms / ms:.2%} of it")
     rows.append(dict(
         name="ctc_greedy", route="cuda",
         source="lipreading_tpu_torch/csrc/ctc_greedy.cu",
         replaces="lipreading_tpu/ops/decode_pallas.py:22",
         launches=0, max_abs_err=float(worst), ms=ms, plain_ms=plain,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, wrapper_ms=wrap))
     return rows
 
 
@@ -583,25 +668,28 @@ def phase_path(frames, lengths, texts, gpu, rows):
     check(cpu_hyps == hyps, f"GPU transcripts {hyps} != CPU {cpu_hyps}")
 
 
-def ctc_case(V: int, L: int):
-    """The CTC lattice kernels' inputs at the training path's shape: B = 8,
-    T = 128, S = 2 L + 1 from random log-probs; label lengths mixed with a
-    0 and L, input lengths mixed with one below T; a repeated label."""
+def ctc_case(V: int, L: int, B: int, T: int, seed: int, ends,
+             inl_range=None):
+    """CTC lattice inputs from random log-probs: S = 2 L + 1; labels drawn
+    from 1..V-1 with a repeat at the start (no skip there); label lengths
+    mixed, the first 0 and the last L; input lengths drawn from
+    ``inl_range`` (default T/2..T), at least 2 len + 2 and at most T, the
+    first and the last set to ``ends``."""
     import numpy as np
     import torch
 
     from lipreading_tpu_torch.ops import ctc
 
-    rng = np.random.default_rng(5)
-    B, T = CTC_B, CTC_T
+    rng = np.random.default_rng(seed)
     logits = torch.from_numpy(rng.normal(0, 2, (B, T, V)).astype(np.float32))
     labels = rng.integers(1, V, (B, L)).astype(np.int32)
     labels[:, 1] = labels[:, 0]
     lab = rng.integers(1, L + 1, B).astype(np.int32)
     lab[0], lab[-1] = 0, L
-    inl = np.minimum(np.maximum(2 * lab + 2, rng.integers(T // 2, T + 1, B)),
+    lo, hi = inl_range or (T // 2, T)
+    inl = np.minimum(np.maximum(2 * lab + 2, rng.integers(lo, hi + 1, B)),
                      T).astype(np.int32)
-    inl[0], inl[-1] = T // 3, T
+    inl[0], inl[-1] = ends
     labels_t = torch.from_numpy(labels)
     lp_ext, skip = ctc._lattice_inputs(logits, labels_t, 0)
     return {"logits": logits.cuda(), "labels": labels_t.cuda(),
@@ -610,62 +698,203 @@ def ctc_case(V: int, L: int):
             "lab": torch.from_numpy(lab).cuda()}
 
 
-def phase_ctc_kernels(cfg) -> list[dict]:
-    """Both CTC lattice kernels against their plain versions at the path's
-    shape, with times, bounds and F.ctc_loss as the yardstick."""
+def ctc_readings(nll, grad, nll_w, grad_w) -> tuple[float, float]:
+    """(max relative nll error, max grad excess over the rtol / atol limit)
+    of lattice results against the plain version's."""
+    nll_rel = ((nll - nll_w).abs() / nll_w.abs().clamp(min=1.0)).max().item()
+    excess = ((grad - grad_w).abs()
+              - (CTC_GRAD_ATOL + CTC_GRAD_RTOL * grad_w.abs())).max().item()
+    return nll_rel, excess
+
+
+def ctc_check(name: str, c: dict, g) -> dict:
+    """One CTC case: both wrappers against their plain versions (nll
+    relative CTC_NLL_RTOL, grads CTC_GRAD_RTOL / ATOL), finite, grads exactly
+    0 past each input length, and a second launch of each kernel giving the
+    same bytes."""
     import torch
-    import torch.nn.functional as F
 
     from lipreading_tpu_torch.ops import ctc
 
-    c = ctc_case(cfg.model.vocab_size, cfg.data.max_chars)
     lp, skip, inl, lab = c["lp_ext"], c["skip"], c["inl"], c["lab"]
     B, T, S = lp.shape
-    g = 1.0 / torch.clamp(lab.float(), min=1.0) / B     # d mean(nll / len)
     nll, alpha = ctc.ctc_lattice_fwd(lp, skip, inl, lab)
     grad = ctc.ctc_lattice_bwd(lp, skip, inl, lab, alpha, nll, g)
+    nll2, alpha2 = ctc.ctc_lattice_fwd(lp, skip, inl, lab)
+    grad2 = ctc.ctc_lattice_bwd(lp, skip, inl, lab, alpha, nll, g)
     nll_w, alpha_w = ctc.ctc_lattice_fwd_reference(lp, skip, inl, lab)
     grad_w = ctc.ctc_lattice_bwd_reference(lp, skip, inl, lab, alpha_w,
                                            nll_w, g)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(nll).all() and torch.isfinite(grad).all()),
-          "CTC lattice: non-finite nll or grad")
-    nll_rel = ((nll - nll_w).abs() / nll_w.abs().clamp(min=1.0)).max().item()
-    nll_err = (nll - nll_w).abs().max().item()
-    g_excess = ((grad - grad_w).abs()
-                - (CTC_GRAD_ATOL + CTC_GRAD_RTOL * grad_w.abs())).max().item()
-    g_err = (grad - grad_w).abs().max().item()
+          f"CTC lattice {name}: non-finite nll or grad")
+    nll_rel, g_excess = ctc_readings(nll, grad, nll_w, grad_w)
+    same = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+               for a, b in ((nll, nll2), (alpha, alpha2), (grad, grad2)))
     t_idx = torch.arange(T, device="cuda")[None, :, None]
     past = (grad.abs() * (t_idx >= inl[:, None, None])).sum().item()
-    log(f"[ctc] B={B} T={T} S={S} lengths {inl.tolist()} labels "
-        f"{lab.tolist()}: nll max |kernel - plain| = {nll_err:.3g} "
+    # skip transitions s - 2 -> s whose two states lie in other lanes, and
+    # in other warps, of the kernels' plan
+    W, K = ctc.lattice_plan(S)
+    s_idx = torch.arange(S, device="cuda")
+    cross_lane = int((skip & ((s_idx - 2).clamp(min=0) // K
+                              != s_idx // K)).sum().item())
+    cross_warp = int((skip & ((s_idx - 2).clamp(min=0) // (32 * K)
+                              != s_idx // (32 * K))).sum().item())
+    log(f"[ctc] {name}: plan {W} warp(s) of K {K} states a lane; skip "
+        f"transitions across lanes {cross_lane}, across warps {cross_warp}")
+    check(cross_lane > 0 and (W == 1 or cross_warp > 0),
+          f"CTC lattice {name}: no skip transition crosses a boundary")
+    r = {"nll_rel": nll_rel, "g_excess": g_excess,
+         "nll_err": (nll - nll_w).abs().max().item(),
+         "g_err": (grad - grad_w).abs().max().item()}
+    log(f"[ctc] {name} B={B} T={T} S={S} lengths {inl.tolist()} labels "
+        f"{lab.tolist()}: nll max |kernel - plain| = {r['nll_err']:.3g} "
         f"(relative {nll_rel:.3g}, limit {CTC_NLL_RTOL:g}); grad max "
-        f"|kernel - plain| = {g_err:.3g} (limit rtol {CTC_GRAD_RTOL:g} / atol "
-        f"{CTC_GRAD_ATOL:g}, excess {g_excess:.3g}); grad past the input "
-        f"lengths sums to {past}")
-    check(nll_rel <= CTC_NLL_RTOL, f"CTC lattice nll disagrees: {nll_rel}")
-    check(g_excess <= 0.0, f"CTC lattice grad disagrees: {g_err}")
-    check(past == 0.0, "CTC lattice grad is not 0 past the input length")
+        f"|kernel - plain| = {r['g_err']:.3g} (limit rtol {CTC_GRAD_RTOL:g} "
+        f"/ atol {CTC_GRAD_ATOL:g}, excess {g_excess:.3g}); grad past the "
+        f"input lengths sums to {past}; a second launch of each kernel "
+        f"gives {'the same' if same else 'OTHER'} bytes")
+    check(nll_rel <= CTC_NLL_RTOL, f"CTC lattice {name} nll: {nll_rel}")
+    check(g_excess <= 0.0, f"CTC lattice {name} grad: {r['g_err']}")
+    check(past == 0.0, f"CTC lattice {name}: grad not 0 past the length")
+    check(same, f"CTC lattice {name}: two launches give other bytes")
+    return dict(r, nll=nll, alpha=alpha, grad=grad, nll_w=nll_w,
+                grad_w=grad_w)
 
-    # an input length above T counts as T, in the kernel and in its plain
-    # version alike (ROADMAP F2)
-    inl_over = inl.clone()
-    inl_over[1] = T + 7
-    nll_o, alpha_o = ctc.ctc_lattice_fwd(lp, skip, inl_over, lab)
-    grad_o = ctc.ctc_lattice_bwd(lp, skip, inl_over, lab, alpha_o, nll_o, g)
-    nll_ow, alpha_ow = ctc.ctc_lattice_fwd_reference(lp, skip, inl_over, lab)
-    grad_ow = ctc.ctc_lattice_bwd_reference(lp, skip, inl_over, lab,
-                                            alpha_ow, nll_ow, g)
+
+def ctc_fault(name: str, c: dict, g, got: dict):
+    """Planted fault: the plain versions with one skip flag cleared (a
+    label of the longest sample may no longer follow the label before it
+    without a blank between); read against the plain version as the kernel
+    is, it must break both limits that the kernel meets."""
+    from lipreading_tpu_torch.ops import ctc
+
+    lp, skip, inl, lab = c["lp_ext"], c["skip"], c["inl"], c["lab"]
+    b = int(lab.argmax())
+    s = int(lab[b]) | 1                       # a label state in the middle
+    if not bool(skip[b, s]):
+        s += 2
+    check(bool(skip[b, s]), f"CTC fault {name}: no skip flag to clear")
+    bad = skip.clone()
+    bad[b, s] = False
+    nll_f, alpha_f = ctc.ctc_lattice_fwd_reference(lp, bad, inl, lab)
+    grad_f = ctc.ctc_lattice_bwd_reference(lp, bad, inl, lab, alpha_f,
+                                           nll_f, g)
+    f_rel, f_excess = ctc_readings(nll_f, grad_f, got["nll_w"],
+                                   got["grad_w"])
+    log(f"[ctc] {name} planted fault (sample {b}'s skip flag at state {s} "
+        f"cleared, plain versions): nll relative {f_rel:.3g} (kernel "
+        f"{got['nll_rel']:.3g}, limit {CTC_NLL_RTOL:g}), grad excess "
+        f"{f_excess:.3g} (kernel {got['g_excess']:.3g}, limit 0)")
+    check(f_rel > CTC_NLL_RTOL and f_excess > 0.0,
+          f"CTC fault {name} is within the limits: {f_rel}, {f_excess}")
+
+
+def ctc_bare(c: dict, alpha, nll, g, plan=None) -> dict:
+    """Each CTC lattice kernel's C entry as a bare ctypes launch on
+    preallocated outputs (no checks, no conversion, no allocation), under
+    ``plan`` (W, K), by default ``lattice_plan``'s."""
+    import torch
+
+    from lipreading_tpu_torch import kernels
+    from lipreading_tpu_torch.ops import ctc
+
+    lib = kernels.lib()
+    lp, inl, lab = c["lp_ext"], c["inl"], c["lab"]
+    B, T, S = lp.shape
+    sk = c["skip"].view(torch.uint8)
+    a_out, n_out, g_out = (torch.empty_like(x) for x in (alpha, nll, lp))
+    ins = [x.data_ptr() for x in (lp, sk, inl, lab)]
+    geo = (B, T, S, *(plan or ctc.lattice_plan(S)),
+           kernels.stream_ptr(lp.device))
+    return {
+        "fwd": lambda: lib.ctc_lattice_fwd(*ins, a_out.data_ptr(),
+                                           n_out.data_ptr(), *geo),
+        "bwd": lambda: lib.ctc_lattice_bwd(*ins, alpha.data_ptr(),
+                                           nll.data_ptr(), g.data_ptr(),
+                                           g_out.data_ptr(), *geo),
+        "_keep": (a_out, n_out, g_out, sk),
+    }
+
+
+def chain_step_ms() -> dict:
+    """Device ms of one step of each recursion's critical path, one warp
+    (``ctc_chain_probe``): two step counts timed, their difference in time
+    over their difference in steps (the launch cancels out)."""
+    import torch
+
+    from lipreading_tpu_torch import kernels
+
+    lib = kernels.lib()
+    out = torch.empty(32, device="cuda")
+    st = kernels.stream_ptr(out.device)
+    n1, n2 = CHAIN_PROBE_STEPS
+    res = {}
+    for name, bwd in (("fwd", 0), ("bwd", 1)):
+        kernels.check(lib.ctc_chain_probe(out.data_ptr(), n1, bwd, st),
+                      "ctc_chain_probe")
+        t1, t2 = (time_ms(lambda n=n: lib.ctc_chain_probe(
+            out.data_ptr(), n, bwd, st), 10) for n in (n1, n2))
+        res[name] = (t2 - t1) / (n2 - n1)
     torch.cuda.synchronize()
-    o_excess = ((grad_o - grad_ow).abs()
-                - (CTC_GRAD_ATOL + CTC_GRAD_RTOL * grad_ow.abs())).max().item()
-    o_live = grad_ow[1].abs().sum().item()
-    log(f"[ctc] input length {T + 7} > T = {T} on sample 1: grad max "
-        f"|kernel - plain| = {(grad_o - grad_ow).abs().max().item():.3g} "
-        f"(excess {o_excess:.3g}), plain grad of that sample sums to "
-        f"{o_live:.3g} in absolute value (0 would be the unclamped rule)")
-    check(o_excess <= 0.0, f"CTC lattice grad with a length above T: {o_excess}")
-    check(o_live > 0.0, "the plain backward zeroes a length above T")
+    check(bool(torch.isfinite(out).all()), "chain probe: non-finite")
+    return res
+
+
+def ctc_work(c: dict) -> dict:
+    """What this run's data needs of each kernel: (bytes, operations,
+    dependent steps). Rows t < input length of lp_ext (and of alpha, for
+    the backward) are read, every row of alpha and of the gradient is
+    written; one logaddexp is 6 operations (max, sub, abs, exp, log1p,
+    add); the longest sample takes max(n) - 1 dependent steps."""
+    import torch
+
+    lp, skip, inl = c["lp_ext"], c["skip"], c["inl"]
+    B, T, S = lp.shape
+    n = torch.clamp(inl, 0, T)
+    rows_f = int(torch.clamp(n, min=1).sum().item())
+    rows_b = int(n.sum().item())
+    steps = int(torch.clamp(n - 1, min=0).sum().item())
+    skip_steps = int((torch.clamp(n - 1, min=0) * skip.sum(1)).sum().item())
+    small = B * S + 2 * B * 4                   # skip flags and lengths
+    chain = max(int(n.max().item()) - 1, 0)
+    return {
+        "fwd": (rows_f * S * 4 + small + B * T * S * 4 + B * 4,
+                steps * S * 7 + skip_steps * 6, chain),
+        "bwd": (steps * S * 4 + rows_b * S * 4 + small + 2 * B * 4
+                + B * T * S * 4, rows_b * S * (3 + 12 + 5), chain),
+    }
+
+
+def ctc_times(name: str, c: dict, g, got: dict, chain: dict,
+              iters: int, plain_iters: int) -> dict:
+    """Device ms of each kernel (CUDA events around its bare C entry) and
+    of F.ctc_loss (torch.profiler's device time), the wrappers' and the
+    plain versions' ms, and the bounds: bytes, operations and the chain of
+    dependent steps, the largest named."""
+    import torch
+    import torch.nn.functional as F
+
+    from lipreading_tpu_torch import kernels
+    from lipreading_tpu_torch.ops import ctc
+
+    lp, skip, inl, lab = c["lp_ext"], c["skip"], c["inl"], c["lab"]
+    alpha, nll = got["alpha"], got["nll"]
+    bare = ctc_bare(c, alpha, nll, g)
+    dev, prof = {}, {}
+    for k in ("fwd", "bwd"):
+        kernels.check(bare[k](), f"bare ctc_lattice_{k}")
+        dev[k] = time_ms(bare[k], iters)
+        prof[k] = device_ms(bare[k], iters)[0]
+    wrap = {"fwd": time_ms(lambda: ctc.ctc_lattice_fwd(lp, skip, inl, lab),
+                           iters),
+            "bwd": time_ms(lambda: ctc.ctc_lattice_bwd(
+                lp, skip, inl, lab, alpha, nll, g), iters)}
+    plain = {"fwd": time_ms(lambda: ctc.ctc_lattice_fwd_reference(
+                 lp, skip, inl, lab), plain_iters),
+             "bwd": time_ms(lambda: ctc.ctc_lattice_bwd_reference(
+                 lp, skip, inl, lab, alpha, nll, g), plain_iters)}
 
     # yardstick: F.ctc_loss on the same log-probs (its own alpha and beta)
     logp = torch.log_softmax(c["logits"], dim=-1).transpose(0, 1).contiguous()
@@ -673,63 +902,151 @@ def phase_ctc_kernels(cfg) -> list[dict]:
     targets, inl64, lab64 = c["labels"].long(), inl.long(), lab.long()
 
     def lib_fwd():
-        return F.ctc_loss(logp, targets, inl64, lab64, reduction="none")
+        with torch.no_grad():
+            F.ctc_loss(logp, targets, inl64, lab64, reduction="none")
 
     def lib_fwd_bwd():
         logp_g.grad = None
         F.ctc_loss(logp_g, targets, inl64, lab64,
                    reduction="none").sum().backward()
 
-    lib_nll = lib_fwd()
-    torch.cuda.synchronize()
-    log(f"[ctc] F.ctc_loss vs kernel nll: max |diff| "
+    lib_nll = F.ctc_loss(logp, targets, inl64, lab64, reduction="none")
+    lib = {"fwd": device_ms(lib_fwd, iters)[0],
+           "bwd": device_ms(lib_fwd_bwd, iters)[0]}
+    log(f"[ctc] {name} F.ctc_loss vs kernel nll: max |diff| "
         f"{(lib_nll - nll).abs().max().item():.3g} (a yardstick only)")
-    ms_f = time_ms(lambda: ctc.ctc_lattice_fwd(lp, skip, inl, lab))
-    ms_b = time_ms(lambda: ctc.ctc_lattice_bwd(lp, skip, inl, lab, alpha, nll,
-                                               g))
-    plain_f = time_ms(lambda: ctc.ctc_lattice_fwd_reference(lp, skip, inl,
-                                                            lab), iters=5)
-    plain_b = time_ms(lambda: ctc.ctc_lattice_bwd_reference(
-        lp, skip, inl, lab, alpha, nll, g), iters=5)
-    lib_f = time_ms(lib_fwd)
-    lib_fb = time_ms(lib_fwd_bwd)
+    out = {}
+    for k, (nbytes, ops, steps) in ctc_work(c).items():
+        b_ms, b_by = bound_ms(nbytes, ops)
+        chain_ms = steps * chain[k]
+        top, top_by = max((b_ms, b_by), (chain_ms, "chain"))
+        log(f"[ctc] {name} {'forward' if k == 'fwd' else 'backward'}: "
+            f"kernel device {dev[k]:.4f} ms (CUDA events around the bare C "
+            f"entry; torch.profiler {prof[k]:.4f}, wrapper {wrap[k]:.4f}), "
+            f"plain {plain[k]:.4f} ms, F.ctc_loss "
+            f"{'forward' if k == 'fwd' else 'forward+backward'} device "
+            f"{lib[k]:.4f} ms; bounds: bytes {nbytes / HBM_BYTES_PER_S * 1e6:.4f}"
+            f" us ({nbytes} B), operations {ops / FP32_OPS_PER_S * 1e6:.4f} "
+            f"us ({ops}), chain {chain_ms:.4f} ms ({steps} steps x "
+            f"{chain[k] * 1e3:.4f} us) -> {top_by} bound {top:.4f} ms, the "
+            f"kernel at {top / dev[k]:.1%} of it")
+        out[k] = dict(ms=dev[k], wrapper_ms=wrap[k], plain_ms=plain[k],
+                      library_ms=lib[k], bound_ms=b_ms, bound_by=b_by,
+                      chain_bound_ms=chain_ms, profiler_ms=prof[k])
+    del bare
+    return out
 
-    # what this run's data needs: rows t < input length are read, every row
-    # of alpha and of the gradient is written
-    n = torch.clamp(inl, 0, T)
-    rows_f = int(torch.clamp(n, min=1).sum().item())
-    rows_b = int(n.sum().item())
-    steps = int(torch.clamp(n - 1, min=0).sum().item())
-    n_skip = skip.sum(1)
-    skip_steps = int((torch.clamp(n - 1, min=0) * n_skip).sum().item())
-    small = B * S + 2 * B * 4                   # skip flags and lengths
-    bytes_f = rows_f * S * 4 + small + B * T * S * 4 + B * 4
-    bytes_b = (steps * S * 4 + rows_b * S * 4 + small + 2 * B * 4
-               + B * T * S * 4)
-    # one logaddexp is 6 operations (max, sub, abs, exp, log1p, add)
-    ops_f = steps * S * 7 + skip_steps * 6
-    ops_b = rows_b * S * (3 + 12 + 5)
-    bf, byf = bound_ms(bytes_f, ops_f)
-    bb, byb = bound_ms(bytes_b, ops_b)
-    log(f"[ctc] forward: kernel {ms_f:.4f} ms, plain {plain_f:.4f} ms, "
-        f"F.ctc_loss forward {lib_f:.4f} ms, bound {bf * 1e3:.3f} us ({byf}, "
-        f"{bytes_f} B, {ops_f} ops)")
-    log(f"[ctc] backward: kernel {ms_b:.4f} ms, plain {plain_b:.4f} ms, "
-        f"F.ctc_loss forward+backward {lib_fb:.4f} ms (its backward needs "
-        f"its own forward), bound {bb * 1e3:.3f} us ({byb}, {bytes_b} B, "
-        f"{ops_b} ops)")
-    return [
-        dict(name="ctc_lattice_fwd", route="cuda",
-             source="lipreading_tpu_torch/csrc/ctc_lattice.cu",
-             replaces="lipreading_tpu/ops/ctc_pallas.py:46", launches=0,
-             max_abs_err=nll_err, ms=ms_f, plain_ms=plain_f, bound_ms=bf,
-             bound_by=byf, library_ms=lib_f),
-        dict(name="ctc_lattice_bwd", route="cuda",
-             source="lipreading_tpu_torch/csrc/ctc_lattice.cu",
-             replaces="lipreading_tpu/ops/ctc_pallas.py:79", launches=0,
-             max_abs_err=g_err, ms=ms_b, plain_ms=plain_b, bound_ms=bb,
-             bound_by=byb, library_ms=lib_fb),
-    ]
+
+def ctc_plan_sweep(name: str, c: dict, g, got: dict, iters: int) -> None:
+    """Each kernel's device time (``torch.profiler``, bare C entry: CUDA
+    events would time the host's launches while worker processes render
+    clips) under every K the kernels are built for, with as few warps as
+    cover S: what ``lattice_plan``'s choice rests on. Every plan must give
+    the default plan's bytes."""
+    import torch
+
+    from lipreading_tpu_torch import kernels
+    from lipreading_tpu_torch.ops import ctc
+
+    S = c["lp_ext"].shape[2]
+    chosen = ctc.lattice_plan(S)
+    for K in ctc.LATTICE_K:
+        plan = (-(-S // (32 * K)), K)
+        bare = ctc_bare(c, got["alpha"], got["nll"], g, plan)
+        for k in ("fwd", "bwd"):
+            kernels.check(bare[k](), f"bare ctc_lattice_{k} plan {plan}")
+        a_out, n_out, g_out, _ = bare["_keep"]
+        torch.cuda.synchronize()
+        same = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                   for a, b in ((a_out, got["alpha"]), (n_out, got["nll"]),
+                                (g_out, got["grad"])))
+        t = {k: device_ms(bare[k], iters)[0] for k in ("fwd", "bwd")}
+        log(f"[ctc] {name} plan {plan[0]} warp(s) of K {K}"
+            f"{' (lattice_plan)' if plan == chosen else ''}: forward "
+            f"{t['fwd']:.4f} ms, backward {t['bwd']:.4f} ms (device, bare C "
+            f"entry, torch.profiler); {'the same' if same else 'OTHER'} bytes "
+            "as the default plan")
+        check(same, f"CTC lattice {name}: plan {plan} gives other bytes")
+
+
+def phase_ctc_kernels(cfg) -> list[dict]:
+    """Both CTC lattice kernels against their plain versions at the
+    training path's shape, the long-clip fine-tuning shape and S values
+    whose skip transitions cross lane and warp boundaries; a planted fault;
+    two launches' bytes; device times against the bounds (bytes,
+    operations, chain) and F.ctc_loss's device time."""
+    import torch
+
+    from lipreading_tpu_torch.ops import ctc
+
+    V, L = cfg.model.vocab_size, cfg.data.max_chars
+    # the kernels' branch-free log1p: the bits of log1pf on all of [0, 1]
+    from lipreading_tpu_torch import kernels
+
+    differ = torch.zeros(1, dtype=torch.int32, device="cuda")
+    kernels.check(kernels.lib().ctc_log1p_check(
+        differ.data_ptr(), kernels.stream_ptr(differ.device)),
+        "ctc_log1p_check")
+    n_differ = int(differ.item())
+    log(f"[ctc] log1p01 against log1pf on every float in [0, 1]: {n_differ} "
+        f"of {0x3f800001} differ in any bit")
+    check(n_differ == 0, f"log1p01 differs from log1pf on {n_differ} floats")
+    chain = chain_step_ms()
+    log(f"[ctc] chain probe (one warp, {CHAIN_PROBE_STEPS} steps): forward "
+        f"step {chain['fwd'] * 1e6:.2f} ns, backward step "
+        f"{chain['bwd'] * 1e6:.2f} ns")
+    rows = {}
+    for name, B, T, Lc, ends, rng_, timed in (
+            ("path", CTC_B, CTC_T, L, (CTC_T // 3, CTC_T), None, True),
+            ("long", 4, LONG_BUCKET, LONG_MAX_CHARS, (940, 980), (940, 980),
+             True),
+            *CTC_EDGE_CASES):
+        c = ctc_case(V, Lc, B, T, 5 if name == "path" else T + Lc, ends,
+                     rng_)
+        g = 1.0 / torch.clamp(c["lab"].float(), min=1.0) / B  # mean(nll/len)
+        got = ctc_check(name, c, g)
+        if name in ("path", "long"):
+            ctc_fault(name, c, g, got)
+        if name == "path":
+            # an input length above T counts as T, in the kernel and in its
+            # plain version alike (ROADMAP F2)
+            lp, skip, lab = c["lp_ext"], c["skip"], c["lab"]
+            inl_over = c["inl"].clone()
+            inl_over[1] = T + 7
+            nll_o, alpha_o = ctc.ctc_lattice_fwd(lp, skip, inl_over, lab)
+            grad_o = ctc.ctc_lattice_bwd(lp, skip, inl_over, lab, alpha_o,
+                                         nll_o, g)
+            nll_ow, alpha_ow = ctc.ctc_lattice_fwd_reference(lp, skip,
+                                                             inl_over, lab)
+            grad_ow = ctc.ctc_lattice_bwd_reference(lp, skip, inl_over, lab,
+                                                    alpha_ow, nll_ow, g)
+            torch.cuda.synchronize()
+            o_excess = ctc_readings(nll_o, grad_o, nll_ow, grad_ow)[1]
+            o_live = grad_ow[1].abs().sum().item()
+            log(f"[ctc] input length {T + 7} > T = {T} on sample 1: grad "
+                f"max |kernel - plain| = "
+                f"{(grad_o - grad_ow).abs().max().item():.3g} (excess "
+                f"{o_excess:.3g}), plain grad of that sample sums to "
+                f"{o_live:.3g} in absolute value (0 would be the unclamped "
+                "rule)")
+            check(o_excess <= 0.0, f"CTC grad with a length above T: "
+                  f"{o_excess}")
+            check(o_live > 0.0, "the plain backward zeroes a length above T")
+        if timed:
+            long = name == "long"
+            t = ctc_times(name, c, g, got, chain, 10 if long else 50,
+                          2 if long else 5)
+            ctc_plan_sweep(name, c, g, got, 10 if long else 50)
+            if name == "path":
+                for k, row in t.items():
+                    rows[k] = dict(
+                        name=f"ctc_lattice_{k}", route="cuda",
+                        source="lipreading_tpu_torch/csrc/ctc_lattice.cu",
+                        replaces=CTC_REPLACES[k], launches=0,
+                        max_abs_err=got["nll_err" if k == "fwd" else "g_err"],
+                        **row)
+        del c, got
+    return [rows["fwd"], rows["bwd"]]
 
 
 def flash_inputs(seed: int, B: int, T: int, lengths, dtype,
@@ -1198,6 +1515,7 @@ def phase_train_flash(gpu, long, rows):
     batch whose loss falls, peak memory with flash on and off."""
     import torch
 
+    from lipreading_tpu_torch.ops import ctc
     from lipreading_tpu_torch.ops import flash_attention as fa
 
     over = {"model.flash_attention": 1, "data.max_chars": LONG_MAX_CHARS}
@@ -1209,13 +1527,14 @@ def phase_train_flash(gpu, long, rows):
         f" chars; release {RELEASE} warm start, dropout "
         f"{base.model.dropout}, roi_augment {base.train.roi_augment}, "
         f"{base.model.dtype}")
+    counted = (*fa.WRAPPERS, ctc.ctc_lattice_fwd, ctc.ctc_lattice_bwd)
     totals = dict.fromkeys((w.__name__ for w in fa.WRAPPERS), 0)
     for pol in ("xla", "pallas", "fused"):
         cfg = base.override(**{"model.flash_bwd": pol})
         tr = make_trainer(cfg, tree, gpu, "cuda", TRAIN_DIR)
         tr.train_step(batch)                     # warm-up
         torch.cuda.synchronize()
-        reset(fa.WRAPPERS)
+        reset(counted)
         ms, losses = [], []
         for _ in range(FLASH_TRAIN_STEPS):
             t0 = time.perf_counter()
@@ -1223,11 +1542,12 @@ def phase_train_flash(gpu, long, rows):
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
             losses.append({k: float(v) for k, v in m.items()})
-        got = {w.__name__: w.launches for w in fa.WRAPPERS}
+        got = {w.__name__: w.launches for w in counted}
         want = {"flash_fwd": layers,
                 "flash_bwd_fused": layers if pol == "fused" else 0,
                 "flash_bwd_dq": layers if pol == "pallas" else 0,
-                "flash_bwd_dkv": layers if pol == "pallas" else 0}
+                "flash_bwd_dkv": layers if pol == "pallas" else 0,
+                "ctc_lattice_fwd": 1, "ctc_lattice_bwd": 1}
         log(f"[train-flash] flash_bwd={pol}: {FLASH_TRAIN_STEPS} steps, "
             f"losses {[round(x['loss'], 4) for x in losses]}, ms per step "
             f"{[round(x, 1) for x in ms]} (host clock, synchronised), "
@@ -1239,7 +1559,8 @@ def phase_train_flash(gpu, long, rows):
             check(got[k] == v * FLASH_TRAIN_STEPS,
                   f"flash_bwd={pol}: {k} launched {got[k]} times in "
                   f"{FLASH_TRAIN_STEPS} steps, want {v} per step")
-            totals[k] += got[k]
+            if k in totals:
+                totals[k] += got[k]
         del tr
     for r in rows:
         if r["name"] in totals:

@@ -39,11 +39,16 @@ SIGNATURES = {
     # logits, lengths, ids, counts, B, T, V, blank, stream
     "ctc_greedy": [c_void_p, c_void_p, c_void_p, c_void_p, c_int, c_int,
                    c_int, c_int, c_void_p],
-    # lp_ext, skip, input_lengths, label_lengths, alpha, nll, B, T, S, stream
-    "ctc_lattice_fwd": [c_void_p] * 6 + [c_int] * 3 + [c_void_p],
+    # lp_ext, skip, input_lengths, label_lengths, alpha, nll, B, T, S,
+    # W, K (ops.ctc.lattice_plan), stream
+    "ctc_lattice_fwd": [c_void_p] * 6 + [c_int] * 5 + [c_void_p],
     # lp_ext, skip, input_lengths, label_lengths, alpha, nll, g, grad,
-    # B, T, S, stream
-    "ctc_lattice_bwd": [c_void_p] * 8 + [c_int] * 3 + [c_void_p],
+    # B, T, S, W, K, stream
+    "ctc_lattice_bwd": [c_void_p] * 8 + [c_int] * 5 + [c_void_p],
+    # out, steps, backward, stream
+    "ctc_chain_probe": [c_void_p, c_int, c_int, c_void_p],
+    # differ (one uint32), stream
+    "ctc_log1p_check": [c_void_p, c_void_p],
     # q, k, v, lengths, out, lse (or NULL), B, T, H, D, bf16, scale, stream
     "flash_fwd": [c_void_p] * 6 + [c_int] * 5 + [c_float, c_void_p],
     # q, k, v, lengths, dout, delta, lse, dq, B, T, H, D, bf16, scale, stream
@@ -146,7 +151,11 @@ def lib() -> ctypes.CDLL:
 
 
 def check(err: int, name: str) -> None:
-    """Raise if a C entry reported a CUDA error."""
+    """Raise if a C entry reported a CUDA error (> 0) or refused its
+    arguments (< 0: a launch plan it was not built for)."""
+    if err < 0:
+        raise RuntimeError(f"{name}: the C entry refused its launch plan "
+                           f"({err})")
     if err != 0:
         raise RuntimeError(f"{name}: launch failed with cudaError_t {err}")
 

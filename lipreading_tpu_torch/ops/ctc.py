@@ -13,7 +13,8 @@ lattice kernels in ``lipreading_tpu/ops/ctc_pallas.py``).
   recursion) and whose backward is ``ctc_lattice_bwd`` (beta recursion and
   state posteriors). Each wrapper runs its plain version
   (``*_reference``) only for tensors on the CPU; on CUDA tensors it
-  launches its kernel or raises.
+  launches its kernel or raises. ``lattice_plan`` maps the S states onto
+  the kernels' warps and lanes.
 * ``ctc_loss_best``: the lattice kernels for CUDA tensors, the plain
   ``ctc_loss`` for CPU tensors.
 
@@ -94,6 +95,39 @@ def ctc_loss_mean(logits, labels, input_lengths, label_lengths,
 
 # --- the lattice kernels and their plain versions ---------------------------
 
+# the states a lane owns (K) that the kernels are built for, the most warps
+# a sample takes (one block of 1024 threads), and so the most states a plan
+# covers (L = 3071 labels)
+LATTICE_K = (2, 4, 6)
+LATTICE_MAX_WARPS = 32
+LATTICE_MAX_S = 32 * LATTICE_MAX_WARPS * max(LATTICE_K)
+
+
+def lattice_plan(S: int) -> tuple[int, int]:
+    """(W, K) for S lattice states: W warps a sample, lane j of warp w owns
+    the K states (32 w + j) K + k. K is even (a lane's even k are blank
+    states, which take one lse): 2 while 32 warps cover S (up to 2048
+    states), then 4, then 6; W is as few warps as cover S. chip_smoke.py's
+    ``[ctc]`` times every K at S 81 and 513 (PERF.md section 6). Raises
+    ValueError above ``LATTICE_MAX_S``."""
+    if S < 1:
+        raise ValueError(f"lattice_plan: S must be at least 1, got {S}")
+    if S > LATTICE_MAX_S:
+        raise ValueError(
+            f"lattice_plan: S = {S} states is above the CTC lattice kernels' "
+            f"limit of {LATTICE_MAX_S} (label length "
+            f"{(LATTICE_MAX_S - 1) // 2}): {LATTICE_MAX_WARPS} warps of "
+            f"{max(LATTICE_K)} states a lane")
+    K = next(k for k in LATTICE_K if 32 * LATTICE_MAX_WARPS * k >= S)
+    return -(-S // (32 * K)), K
+
+
+def _skip_bytes(skip: torch.Tensor) -> torch.Tensor:
+    """The kernels' uint8 skip flags: the bool flags' own bytes (a view: no
+    copy, no launch)."""
+    return skip.contiguous().view(torch.uint8)
+
+
 def ctc_lattice_fwd_reference(lp_ext, skip, input_lengths, label_lengths):
     """Plain version of the forward kernel: -> (nll [B], alpha [B, T, S])."""
     B, T, S = lp_ext.shape
@@ -172,22 +206,23 @@ def ctc_lattice_fwd(lp_ext: torch.Tensor, skip: torch.Tensor,
     """lp_ext [B, T, S] float32, skip [B, S] bool, int32 lengths [B] ->
     (nll [B], alpha [B, T, S]), both float32.
 
-    On CUDA tensors this launches the forward lattice kernel; on CPU
-    tensors it runs ``ctc_lattice_fwd_reference``."""
+    On CUDA tensors this launches the forward lattice kernel (S at most
+    ``LATTICE_MAX_S``); on CPU tensors it runs
+    ``ctc_lattice_fwd_reference``."""
     if not _check_lattice("ctc_lattice_fwd", lp_ext, skip, input_lengths,
                           label_lengths):
         return ctc_lattice_fwd_reference(lp_ext, skip, input_lengths,
                                          label_lengths)
     B, T, S = lp_ext.shape
+    W, K = lattice_plan(S)
     lp_ext = lp_ext.contiguous()
-    skip_u8 = skip.to(torch.uint8).contiguous()
     alpha = torch.empty((B, T, S), dtype=torch.float32, device=lp_ext.device)
     nll = torch.empty((B,), dtype=torch.float32, device=lp_ext.device)
     err = kernels.lib().ctc_lattice_fwd(
-        lp_ext.data_ptr(), skip_u8.data_ptr(),
+        lp_ext.data_ptr(), _skip_bytes(skip).data_ptr(),
         input_lengths.contiguous().data_ptr(),
         label_lengths.contiguous().data_ptr(), alpha.data_ptr(),
-        nll.data_ptr(), B, T, S, kernels.stream_ptr(lp_ext.device))
+        nll.data_ptr(), B, T, S, W, K, kernels.stream_ptr(lp_ext.device))
     kernels.check(err, "ctc_lattice_fwd")
     ctc_lattice_fwd.launches += 1
     return nll, alpha
@@ -198,6 +233,7 @@ def ctc_lattice_bwd(lp_ext, skip, input_lengths, label_lengths, alpha, nll,
     """The forward's inputs, its saved alpha [B, T, S] and nll [B], and the
     upstream gradient g [B] (all float32) -> d(sum g * nll) / d lp_ext
     [B, T, S] float32, exactly 0 at frames at or past each input length.
+    S at most ``LATTICE_MAX_S`` on CUDA tensors.
 
     On CUDA tensors this launches the backward lattice kernel; on CPU
     tensors it runs ``ctc_lattice_bwd_reference``."""
@@ -214,15 +250,15 @@ def ctc_lattice_bwd(lp_ext, skip, input_lengths, label_lengths, alpha, nll,
         return ctc_lattice_bwd_reference(lp_ext, skip, input_lengths,
                                          label_lengths, alpha, nll, g)
     B, T, S = lp_ext.shape
+    W, K = lattice_plan(S)
     lp_ext = lp_ext.contiguous()
-    skip_u8 = skip.to(torch.uint8).contiguous()
     grad = torch.empty((B, T, S), dtype=torch.float32, device=lp_ext.device)
     err = kernels.lib().ctc_lattice_bwd(
-        lp_ext.data_ptr(), skip_u8.data_ptr(),
+        lp_ext.data_ptr(), _skip_bytes(skip).data_ptr(),
         input_lengths.contiguous().data_ptr(),
         label_lengths.contiguous().data_ptr(), alpha.contiguous().data_ptr(),
         nll.contiguous().data_ptr(), g.contiguous().data_ptr(),
-        grad.data_ptr(), B, T, S, kernels.stream_ptr(lp_ext.device))
+        grad.data_ptr(), B, T, S, W, K, kernels.stream_ptr(lp_ext.device))
     kernels.check(err, "ctc_lattice_bwd")
     ctc_lattice_bwd.launches += 1
     return grad

@@ -190,3 +190,111 @@ def test_lattice_wrappers_check_their_inputs():
     nll, alpha = tctc.ctc_lattice_fwd(lp, skip, n, n)
     with pytest.raises(ValueError):
         tctc.ctc_lattice_bwd(lp, skip, n, n, alpha[:, :2], nll, nll)
+
+
+PLAN_S = (1, 3, 31, 33, 81, 129, 301, 513, 1025, 2049, 4097)
+
+
+@pytest.mark.parametrize("S", PLAN_S)
+def test_lattice_plan_covers_every_state_once(S):
+    """Lane j of warp w owns states (32 w + j) K + k: every state below S
+    belongs to exactly one (warp, lane, k), K is one the kernels are built
+    for, no warp lies wholly past S, and the block fits the card."""
+    W, K = tctc.lattice_plan(S)
+    assert K in tctc.LATTICE_K and 1 <= W <= tctc.LATTICE_MAX_WARPS
+    owner = {}
+    for w in range(W):
+        for j in range(32):
+            for k in range(K):
+                owner.setdefault((32 * w + j) * K + k, []).append((w, j, k))
+    assert all(len(owner.get(s, [])) == 1 for s in range(S))
+    assert 32 * (W - 1) * K < S <= 32 * W * K
+
+
+def test_lattice_plan_refuses_s_above_the_limit():
+    assert tctc.LATTICE_MAX_S > 4097
+    tctc.lattice_plan(tctc.LATTICE_MAX_S)
+    with pytest.raises(ValueError, match=str(tctc.LATTICE_MAX_S)):
+        tctc.lattice_plan(tctc.LATTICE_MAX_S + 1)
+    with pytest.raises(ValueError):
+        tctc.lattice_plan(0)
+
+
+@pytest.mark.parametrize("wrapper", ["fwd", "bwd"])
+def test_lattice_wrappers_refuse_s_above_the_limit(monkeypatch, wrapper):
+    """On the card's route (the device check passed) a wrapper plans the
+    launch before anything else and names the limit; no kernel is built."""
+    monkeypatch.setattr(tctc, "_check_lattice", lambda *a: True)
+    monkeypatch.setattr(tctc.kernels, "lib", lambda: pytest.fail("built"))
+    S = tctc.LATTICE_MAX_S + 2
+    lp = torch.zeros((1, 2, S))
+    skip = torch.zeros((1, S), dtype=torch.bool)
+    n = torch.ones((1,), dtype=torch.int32)
+    with pytest.raises(ValueError, match=str(tctc.LATTICE_MAX_S)):
+        if wrapper == "fwd":
+            tctc.ctc_lattice_fwd(lp, skip, n, n)
+        else:
+            tctc.ctc_lattice_bwd(lp, skip, n, n, lp, lp[:, 0, 0], lp[:, 0, 0])
+
+
+def test_lattice_kernels_read_the_bool_flags_in_place():
+    """The wrappers hand the kernels the bool skip flags' own bytes as uint8
+    (a view: no copy, no launch); ``CTCLattice`` saves the bool flags for
+    the backward, and the loss and its gradient are the plain versions'."""
+    logits, labels, inl, lab = _case(8, in_lens=[20, 17, 14, 9],
+                                     lab_lens=[6, 3, 0, 1])
+    lp_ext, skip = tctc._lattice_inputs(torch.from_numpy(logits),
+                                        torch.from_numpy(labels), 0)
+    flags = tctc._skip_bytes(skip)
+    assert flags.dtype == torch.uint8 and flags.data_ptr() == skip.data_ptr()
+    assert torch.equal(flags, skip.to(torch.uint8))
+    x = lp_ext.clone().requires_grad_()
+    tin, tlab = torch.from_numpy(inl), torch.from_numpy(lab)
+    nll = tctc.CTCLattice.apply(x, skip, tin, tlab)
+    saved = nll.grad_fn.saved_tensors
+    assert saved[1].dtype == torch.bool and torch.equal(saved[1], skip)
+    nll.sum().backward()
+    nll_w, alpha_w = tctc.ctc_lattice_fwd_reference(lp_ext, skip, tin, tlab)
+    grad_w = tctc.ctc_lattice_bwd_reference(lp_ext, skip, tin, tlab, alpha_w,
+                                            nll_w, torch.ones(4))
+    torch.testing.assert_close(nll.detach(), nll_w, rtol=0, atol=0)
+    torch.testing.assert_close(x.grad, grad_w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("seed,in_lens,lab_lens",
+                         [(9, [20, 11, 16, 20], [6, 2, 0, 4]),
+                          (10, [20, 20, 8, 19], [6, 6, 3, 1])])
+def test_lattice_plain_versions_take_bool_skip(seed, in_lens, lab_lens):
+    """The plain versions take the bool flags that ``_lattice_inputs``
+    makes, through the wrappers and alone, and match the Pallas kernels in
+    interpret mode."""
+    logits, labels, inl, lab = _case(seed, in_lens=in_lens, lab_lens=lab_lens)
+    lp_ext, skip = tctc._lattice_inputs(torch.from_numpy(logits),
+                                        torch.from_numpy(labels), 0)
+    assert skip.dtype == torch.bool
+    tin, tlab = torch.from_numpy(inl), torch.from_numpy(lab)
+    g = torch.tensor([1.0, 0.5, 2.0, 0.25])
+    nll, alpha = tctc.ctc_lattice_fwd(lp_ext, skip, tin, tlab)
+    grad = tctc.ctc_lattice_bwd(lp_ext, skip, tin, tlab, alpha, nll, g)
+    jl = [jnp.asarray(lp_ext.numpy()), jnp.asarray(skip.numpy()),
+          jnp.asarray(inl), jnp.asarray(lab)]
+    jnll, jalpha = jpallas._ctc_lattice_fwd_impl(*jl)
+    jgrad = jpallas._ctc_lattice_bwd((*jl, jalpha, jnll),
+                                     jnp.asarray(g.numpy()))[0]
+    np.testing.assert_allclose(nll.numpy(), np.asarray(jnll), **VAL)
+    np.testing.assert_allclose(grad.numpy(), np.asarray(jgrad), **GRAD)
+    nll_b, _ = tctc.ctc_lattice_fwd_reference(lp_ext, skip, tin, tlab)
+    torch.testing.assert_close(nll, nll_b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("wrapper", ["fwd", "bwd"])
+def test_lattice_wrappers_refuse_uint8_skip(wrapper):
+    """The skip flags are bool: a uint8 tensor is refused, not read."""
+    lp = torch.zeros((1, 4, 3))
+    skip = torch.zeros((1, 3), dtype=torch.uint8)
+    n = torch.ones((1,), dtype=torch.int32)
+    with pytest.raises(TypeError, match="bool skip"):
+        if wrapper == "fwd":
+            tctc.ctc_lattice_fwd(lp, skip, n, n)
+        else:
+            tctc.ctc_lattice_bwd(lp, skip, n, n, lp, lp[:, 0, 0], lp[:, 0, 0])

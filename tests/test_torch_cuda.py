@@ -104,16 +104,26 @@ def _lattice_case(seed, B, T, V, L, infeasible=False):
             logits, labels)
 
 
+# (B, T, V, L): the release's training shape (S 81, two warps of K 2); a
+# single frame and a small vocabulary (one warp); S 121, 301, 601 and the
+# long-clip fine-tuning shape B 4 x T 1024 x S 513 (skips across lanes and
+# warps); S 1025 (17 warps of K 2), 2049 (K 4), 4097 (K 6) and 6143, the
+# largest S the plans reach (32 warps of K 6, the backward's largest ring)
+LATTICE_SHAPES = [(8, 128, 31, 40), (3, 1, 31, 4), (4, 20, 12, 6),
+                  (3, 160, 31, 60), (2, 300, 31, 150), (3, 700, 31, 300),
+                  (4, 1024, 31, 256), (2, 1100, 31, 512), (2, 2100, 31, 1024),
+                  (2, 4200, 31, 2048), (2, 6200, 31, 3071)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,T,V,L", [(8, 128, 31, 40), (3, 1, 31, 4),
-                                     (4, 20, 12, 6), (2, 300, 31, 150)])
+@pytest.mark.parametrize("B,T,V,L", LATTICE_SHAPES)
 @pytest.mark.parametrize("infeasible", [False, True])
 def test_ctc_lattice_kernels_match_plain(cuda, B, T, V, L, infeasible):
     """nll rtol 1e-5 (the kernel and the plain version add the same terms in
     the same order; expf and log1pf differ from the CPU's libm by ulps over
     T steps); grads rtol 1e-3 / atol 1e-5, the limits of
-    tests/test_ctc_pallas.py. S = 301 (L = 150) takes two chunks of the
-    256-thread block."""
+    tests/test_ctc_pallas.py. Every K of ``ctc.lattice_plan`` is here, with
+    one warp and with several."""
     lp, skip, inl, lab, _, _ = _lattice_case(T + L, B, T, V, L, infeasible)
     nll_w, alpha_w = ctc.ctc_lattice_fwd_reference(lp, skip, inl, lab)
     g = torch.linspace(0.5, 1.5, B)
@@ -169,6 +179,69 @@ def test_ctc_lattice_bwd_clamps_input_length_above_t(cuda):
     torch.testing.assert_close(nll.cpu(), nll_w, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(grad.cpu(), grad_w, rtol=1e-3, atol=1e-5)
     assert grad_w[1].abs().sum() > 0.1 and grad_w[3].abs().sum() > 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,V,L", [(4, 60, 12, 20), (2, 400, 31, 200)])
+def test_ctc_lattice_kernels_take_any_skip_flags(cuda, B, T, V, L):
+    """Skip flags on blank states too (which ``_lattice_inputs`` never sets;
+    the kernels then take their second copy of the step loop): kernel
+    against plain, the limits of ``test_ctc_lattice_kernels_match_plain``."""
+    lp, skip, inl, lab, _, _ = _lattice_case(B * L, B, T, V, L)
+    skip = skip.clone()
+    skip[:, 2::6] = True                                 # blank states
+    g = torch.linspace(0.5, 1.5, B)
+    nll_w, alpha_w = ctc.ctc_lattice_fwd_reference(lp, skip, inl, lab)
+    grad_w = ctc.ctc_lattice_bwd_reference(lp, skip, inl, lab, alpha_w,
+                                           nll_w, g)
+    args = [x.to(cuda) for x in (lp, skip, inl, lab)]
+    nll, alpha = ctc.ctc_lattice_fwd(*args)
+    grad = ctc.ctc_lattice_bwd(*args, alpha, nll, g.to(cuda))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(nll.cpu(), nll_w, rtol=1e-5, atol=1e-4)
+    feasible = 2 * lab + 1 <= inl
+    torch.testing.assert_close(grad.cpu()[feasible], grad_w[feasible],
+                               rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,V,L", [(8, 128, 31, 40), (4, 1024, 31, 256)])
+def test_ctc_lattice_is_bit_identical(cuda, B, T, V, L):
+    """No atomics: two launches of each kernel give the same bytes."""
+    lp, skip, inl, lab, _, _ = _lattice_case(B + L, B, T, V, L)
+    args = [x.to(cuda) for x in (lp, skip, inl, lab)]
+    g = torch.linspace(0.5, 1.5, B, device=cuda)
+    outs = []
+    for _ in range(2):
+        nll, alpha = ctc.ctc_lattice_fwd(*args)
+        outs.append((nll, alpha, ctc.ctc_lattice_bwd(*args, alpha, nll, g)))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_ctc_lattice_refuses_plans_it_was_not_built_for(cuda):
+    """Above ``LATTICE_MAX_S`` the wrappers raise and name the limit; the C
+    entries refuse a K they were not built for, or too few warps for S,
+    and the check raises on that."""
+    S = ctc.LATTICE_MAX_S + 2
+    lp = torch.zeros((1, 2, S), device=cuda)
+    skip = torch.zeros((1, S), dtype=torch.bool, device=cuda)
+    n = torch.ones((1,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match=str(ctc.LATTICE_MAX_S)):
+        ctc.ctc_lattice_fwd(lp, skip, n, n)
+    lp, skip, inl, lab, _, _ = _lattice_case(3, 2, 10, 12, 6)
+    lp, skip, inl, lab = (x.to(cuda) for x in (lp, skip, inl, lab))
+    out = torch.empty_like(lp)
+    nll = torch.empty((2,), device=cuda)
+    for W, K in ((1, 3), (1, 8), (0, 2), (33, 2)):
+        err = kernels.lib().ctc_lattice_fwd(
+            lp.data_ptr(), skip.view(torch.uint8).data_ptr(),
+            inl.data_ptr(), lab.data_ptr(), out.data_ptr(), nll.data_ptr(),
+            2, 10, 13, W, K, kernels.stream_ptr(cuda))
+        with pytest.raises(RuntimeError, match="plan"):
+            kernels.check(err, "ctc_lattice_fwd")
 
 
 @pytest.mark.cuda
