@@ -94,6 +94,11 @@ FIRST_SEED = 100
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 ROI_TOL = 1e-4
+PROFILE_ATTEMPTS = 5        # profiles device_ms takes before it fails
+ROI_LONG_N = 4096           # the long-clip batch: 4 clips x 1024 frames
+L2_FLUSH_BYTES = 128 * 2**20  # written between timed launches (L2: 50 MB)
+# the greedy kernel's long-clip shape: B 4 x T 1024, lengths 940..980
+GREEDY_LONG = (4, 1024, (940, 980))
 # CTC lattice kernels vs their plain versions (the limits of
 # tests/test_ctc_pallas.py): nll relative 1e-5 (same terms, same order; expf
 # and log1pf differ from the CPU's by ulps over T steps), grads rtol 1e-3 /
@@ -228,11 +233,14 @@ def time_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> tuple[float, dict]:
+def device_ms(fn, iters: int, name: str = "") -> tuple[float, dict]:
     """Device milliseconds per call of ``fn()``: the device time of every
     kernel, fill and copy that ``torch.profiler`` records over ``iters``
     warmed calls, summed and divided by ``iters`` -> (ms, {name: ms}).
-    Fails if the profiler records no device time."""
+    A profile that records no device time (or no kernel whose name holds
+    ``name``) is taken again after a second's pause, up to
+    ``PROFILE_ATTEMPTS`` in all (on the H100 a profile now and then comes
+    back empty, once twice in a row); fails if none records it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -240,18 +248,24 @@ def device_ms(fn, iters: int) -> tuple[float, dict]:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    split = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            split[e.name] = (split.get(e.name, 0.0)
-                             + e.time_range.elapsed_us() / 1e3 / iters)
-    check(sum(split.values()) > 0, "torch.profiler recorded no device time")
-    return sum(split.values()), split
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        split = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                split[e.name] = (split.get(e.name, 0.0)
+                                 + e.time_range.elapsed_us() / 1e3 / iters)
+        if sum(split.values()) > 0 and any(name in n for n in split):
+            return sum(split.values()), split
+        log(f"[profiler] profile {attempt} of {PROFILE_ATTEMPTS} recorded no "
+            f"device time{f' for {name}' if name else ''}: taken again")
+        time.sleep(1.0)
+    check(False, f"torch.profiler recorded no device time"
+          f"{f' for {name}' if name else ''} in {PROFILE_ATTEMPTS} profiles")
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -284,6 +298,8 @@ def fixture_batch():
 
 
 SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "UBLKCP")
+# sources whose kernels must not spill
+NO_SPILL_SOURCES = ("sm90", "ctc_lattice", "roi_sampler", "ctc_greedy")
 
 
 def sass_counts(path: str) -> dict:
@@ -357,7 +373,7 @@ def phase_build():
             entry = f"{source}:{kernel_name(m.group(1))}"
         if "spill" in line or "registers" in line:
             log(f"[build] {entry} {line.strip()}")
-        if "sm90" in source or "ctc_lattice" in source:
+        if any(k in source for k in NO_SPILL_SOURCES):
             m = re.search(r"(\d+) bytes spill stores", line)
             if m:
                 spills[entry] = int(m.group(1))
@@ -366,7 +382,8 @@ def phase_build():
                 regs[entry] = int(m.group(1))
     if kernels.STATE.build_seconds:
         check(spills and not any(spills.values()),
-              f"Hopper flash or CTC lattice kernels spill: {spills}")
+              f"Hopper flash, CTC lattice, ROI or greedy kernels spill: "
+              f"{spills}")
         # before any launch: a count below this would leave setmaxnreg
         # waiting for registers that no warp frees
         found = {e.split(":")[-1].split("<")[0] for e in regs}
@@ -391,6 +408,15 @@ def phase_build():
     check(len(lattice) == 2 * len(LATTICE_K)
           and all(c["LDGSTS"] + c["UBLKCP"] > 0 for c in lattice.values()),
           f"CTC lattice kernels without asynchronous copies: {lattice}")
+    # every ROI kernel instance and the greedy kernel's staged one copy by
+    # cp.async
+    staged = {k: c for k, c in by_kernel.items()
+              if k == "ctc_greedy_kernel<1>"
+              or k.startswith("roi_sample_kernel<")}
+    log("[build] SASS of the staged ROI and greedy kernels: " + "; ".join(
+        f"{k} {c['LDGSTS']} LDGSTS" for k, c in sorted(staged.items())))
+    check(len(staged) == 5 and all(c["LDGSTS"] > 0 for c in staged.values()),
+          f"staged ROI or greedy kernels without cp.async: {staged}")
 
 
 def nvidia_smi_line() -> str:
@@ -439,10 +465,179 @@ def roi_bytes_needed(boxes, subpixel: bool, H: int, W: int, R: int) -> int:
     return int(torch.sum(rows * cols).item()) * 4 + boxes.numel() * 4
 
 
-def phase_kernels(frames, lengths, dev) -> list[dict]:
-    """Each kernel against its plain version at the main path's shapes."""
+def kernel_ms(fn, iters: int, name: str) -> float:
+    """Device ms per call of ``fn()`` of the kernels whose name holds
+    ``name`` (``device_ms``'s split)."""
+    split = device_ms(fn, iters, name)[1]
+    return sum(t for n, t in split.items() if name in n)
+
+
+def launch_floor_ms() -> float:
+    """Device ms of an empty kernel of one block (``noop_kernel``) by
+    torch.profiler: the least any launch takes on this card."""
+    from lipreading_tpu_torch import kernels
+
+    lib = kernels.lib()
+    st = kernels.stream_ptr("cuda")
+    kernels.check(lib.noop_kernel(st), "noop_kernel")
+    return kernel_ms(lambda: lib.noop_kernel(st), 200, "empty_kernel")
+
+
+def same_bytes(a, b) -> bool:
+    import torch
+
+    return torch.equal(a.contiguous().view(torch.uint8),
+                       b.contiguous().view(torch.uint8))
+
+
+def roi_grid(boxes, N: int, H: int, W: int, R: int):
+    """``F.grid_sample``'s grid for the same crops (the yardstick)."""
+    import torch
+
+    x0, y0, s = (boxes[:, k].float() for k in range(3))
+    j = (torch.arange(R, device="cuda", dtype=torch.float32) + 0.5) / R
+    gx = (x0[:, None] + j[None] * s[:, None]) * (2.0 / W) - 1.0
+    gy = (y0[:, None] + j[None] * s[:, None]) * (2.0 / H) - 1.0
+    return torch.stack([gx[:, None, :].expand(N, R, R),
+                        gy[:, :, None].expand(N, R, R)], dim=-1)
+
+
+def roi_times(name: str, gray, boxes, R: int, kw: dict, flush,
+              floor: float) -> dict:
+    """The ROI kernel at one shape (integer boxes, the main path's): the
+    same bytes over two launches, max|kernel - plain|, its own device time
+    (torch.profiler, bare C entry) with normalize=1 and 0, after an L2
+    flush when ``flush`` is given (a write of that buffer between
+    launches), warm beside; the wrapper's time (CUDA events, warm), the
+    plain version's, F.grid_sample's device time and the byte bound."""
     import torch
     import torch.nn.functional as F
+
+    from lipreading_tpu_torch import kernels
+    from lipreading_tpu_torch.ops import roi
+
+    N, H, W = gray.shape
+    got = roi.sample_rois(gray, boxes, R, **kw)
+    again = roi.sample_rois(gray, boxes, R, **kw)
+    want = roi.sample_rois_reference(gray, boxes, R, **kw)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    same = same_bytes(got, again)
+    del got, again, want
+    lib_k = kernels.lib()
+    st = kernels.stream_ptr(gray.device)
+    out = torch.empty((N, R, R), dtype=torch.float32, device="cuda")
+    p = roi.roi_plan(N, R)
+
+    def bare(norm: int):   # the C entry alone
+        return lib_k.roi_sample(
+            gray.data_ptr(), boxes.data_ptr(), out.data_ptr(), N, H, W, R,
+            kw["mean"], kw["std"], norm, 0, p.tpr, p.rpp, p.band, p.threads,
+            p.smem, st)
+
+    def flushed(norm: int):
+        if flush is not None:
+            flush.fill_(1.0)
+        return bare(norm)
+
+    kernels.check(bare(1), "bare roi_sample")
+    iters = 50 if N <= 1024 else 20
+    ms = {norm: kernel_ms(lambda n=norm: flushed(n), iters, "roi_sample")
+          for norm in (1, 0)}
+    warm = kernel_ms(lambda: bare(1), iters, "roi_sample")
+    wrap = time_ms(lambda: roi.sample_rois(gray, boxes, R, **kw), iters)
+    plain = time_ms(lambda: roi.sample_rois_reference(gray, boxes, R, **kw),
+                    10 if N <= 1024 else 3)
+    grid = roi_grid(boxes, N, H, W, R)
+    g4 = gray[:, None]
+    lib = device_ms(lambda: F.grid_sample(g4, grid, mode="bilinear",
+                                          align_corners=False), iters)[0]
+    del grid
+    nbytes = roi_bytes_needed(boxes, False, H, W, R) + N * R * R * 4
+    b_ms, b_by = bound_ms(nbytes, 10.0 * N * R * R)
+    log(f"[roi] {name} N={N} H={H} W={W} R={R}: max |kernel - plain| = "
+        f"{err:.3g}; a second launch gives {'the same' if same else 'OTHER'} "
+        f"bytes; kernel device {ms[1]:.4f} ms "
+        f"({'after an L2 flush, ' if flush is not None else ''}bare C "
+        f"entry, torch.profiler; warm {warm:.4f}), normalize=0 {ms[0]:.4f} "
+        f"ms (the two divisions: {ms[1] - ms[0]:.4f} ms, "
+        f"{(ms[1] - ms[0]) / ms[1]:.1%}), plain {plain:.4f} ms, "
+        f"F.grid_sample device {lib:.4f} ms, bound {b_ms * 1e3:.3f} us "
+        f"({b_by}, {nbytes} B), the kernel at {b_ms / ms[1]:.1%} of it, "
+        f"{ms[1] / floor:.1f}x the launch floor; the wrapper "
+        f"(sample_rois, CUDA events, warm) {wrap:.4f} ms; plan {p}")
+    check(err <= ROI_TOL, f"ROI {name} disagrees: {err}")
+    check(same, f"ROI {name}: two launches give other bytes")
+    return dict(err=err, ms=ms[1], ms_raw=ms[0], ms_warm=warm,
+                wrapper_ms=wrap, plain_ms=plain, library_ms=lib,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def greedy_times(name: str, lg, ln, blank: int, floor: float) -> dict:
+    """The greedy kernel at one shape: the same bytes over two launches,
+    its own device time (torch.profiler, bare C entry), the wrapper's time
+    (CUDA events), the plain version's time, the composite yardstick's
+    device time and the byte bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from lipreading_tpu_torch import kernels
+    from lipreading_tpu_torch.ops import decode
+
+    B, T, V = lg.shape
+    got = decode.ctc_greedy_ids(lg, ln, blank)
+    again = decode.ctc_greedy_ids(lg, ln, blank)
+    torch.cuda.synchronize()
+    same = all(same_bytes(a, b) for a, b in zip(got, again))
+    lib_k = kernels.lib()
+    st = kernels.stream_ptr(lg.device)
+    ids = torch.empty((B, T), dtype=torch.int32, device="cuda")
+    cnt = torch.empty((B,), dtype=torch.int32, device="cuda")
+    p = decode.greedy_plan(T, V)
+
+    def bare():                     # the C entry alone
+        return lib_k.ctc_greedy(lg.data_ptr(), ln.data_ptr(), ids.data_ptr(),
+                                cnt.data_ptr(), B, T, V, blank, p.sV, p.chunk,
+                                p.nbuf, p.buf_floats, p.threads, p.smem, st)
+
+    kernels.check(bare(), "bare ctc_greedy")
+    ms = kernel_ms(bare, 50, "ctc_greedy")
+    wrap = time_ms(lambda: decode.ctc_greedy_ids(lg, ln, blank))
+    plain = time_ms(lambda: decode.ctc_greedy_ids_reference(lg, ln, blank))
+
+    def composite():
+        raw = lg.argmax(-1)
+        prev = F.pad(raw[:, :-1], (1, 0), value=blank)
+        t_idx = torch.arange(T, device="cuda")[None]
+        keep = (raw != blank) & (raw != prev) & (t_idx < ln[:, None])
+        pos = torch.where(keep, torch.cumsum(keep, 1) - 1, T)
+        out = torch.full((B, T + 1), blank, dtype=raw.dtype, device="cuda")
+        return out.scatter_(1, pos, raw)[:, :T], keep.sum(1)
+
+    comp = device_ms(composite, 50)[0]
+    valid = int(torch.clamp(ln, 0, T).sum().item())
+    nbytes = valid * V * 4 + B * 4 + B * T * 4 + B * 4
+    b_ms, b_by = bound_ms(nbytes, valid * V)
+    log(f"[greedy] {name} B={B} T={T} V={V} lengths {ln.tolist()}: a second "
+        f"launch gives {'the same' if same else 'OTHER'} bytes; kernel device "
+        f"{ms:.4f} ms (bare C entry, torch.profiler), {ms / floor:.2f}x the "
+        f"launch floor; wrapper (ctc_greedy_ids, CUDA events) {wrap:.4f} ms; "
+        f"plan {p}; plain {plain:.4f} ms, argmax+mask+cumsum+scatter "
+        f"device {comp:.4f} ms (a yardstick of several calls: no single "
+        f"PyTorch call computes this, so library_ms is null), bound "
+        f"{b_ms * 1e3:.4f} us ({b_by}, {nbytes} B), the kernel at "
+        f"{b_ms / ms:.2%} of it")
+    check(same, f"CTC greedy {name}: two launches give other bytes")
+    return dict(ms=ms, wrapper_ms=wrap, plain_ms=plain, composite_ms=comp,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_kernels(frames, lengths, dev) -> list[dict]:
+    """Each kernel against its plain version at the main path's shapes: the
+    ROI sampler at the serving batch (N 768) and the long-clip batch (N
+    4096), the greedy kernel at B 8 x T 96 and B 4 x T 1024, each beside
+    the launch floor."""
+    import torch
 
     from lipreading_tpu_torch import kernels
     from lipreading_tpu_torch.ops import decode, roi
@@ -454,6 +649,9 @@ def phase_kernels(frames, lengths, dev) -> list[dict]:
     gray, boxes_i, boxes_f = path_inputs(frames, lengths, dev)
     N, H, W = gray.shape
     rows = []
+    floor = launch_floor_ms()
+    log(f"[floor] an empty kernel of one block (noop_kernel): device "
+        f"{floor:.4f} ms (torch.profiler, 200 launches)")
 
     # --- ROI sampler, both box modes (integer is the main path's) ---------
     kw = dict(mean=pc.normalize_mean, std=pc.normalize_std)
@@ -470,58 +668,61 @@ def phase_kernels(frames, lengths, dev) -> list[dict]:
             "another order than the dense float32 product)")
         check(errs[name] <= ROI_TOL, f"ROI {name} disagrees: {errs[name]}")
 
-    # library yardstick: F.grid_sample, one call that bilinearly resamples
-    # the same crops (without the normalisation and the crop-edge clamping)
-    x0, y0, s = (boxes_i[:, k].float() for k in range(3))
-    j = (torch.arange(R, device="cuda", dtype=torch.float32) + 0.5) / R
-    gx = (x0[:, None] + j[None] * s[:, None]) * (2.0 / W) - 1.0
-    gy = (y0[:, None] + j[None] * s[:, None]) * (2.0 / H) - 1.0
-    grid = torch.stack([gx[:, None, :].expand(N, R, R),
-                        gy[:, :, None].expand(N, R, R)], dim=-1)
-    g4 = gray[:, None]
+    # the normalisation's / 255 (div255): the bits of __fdiv_rn(x, 255)
     lib_k = kernels.lib()
-    st = kernels.stream_ptr(gray.device)
-    out = torch.empty((N, R, R), dtype=torch.float32, device="cuda")
+    differ = torch.zeros(3, dtype=torch.int32, device="cuda")
+    kernels.check(lib_k.roi_div255_check(
+        differ.data_ptr(), kernels.stream_ptr(differ.device)),
+        "roi_div255_check")
+    near, far, other = differ.tolist()
+    log(f"[roi] div255 against __fdiv_rn(x, 255) on every float: {near} "
+        f"differ in [-256, 256], {far} among the other finite floats, "
+        f"{other} among the infinities and NaNs")
+    check(near == far == other == 0,
+          f"div255 differs from __fdiv_rn on {near + far + other} floats")
 
-    def bare():                     # the C entry alone (device time)
-        return lib_k.roi_sample(gray.data_ptr(), boxes_i.data_ptr(),
-                                out.data_ptr(), N, H, W, R, kw["mean"],
-                                kw["std"], 1, 0, st)
-
-    kernels.check(bare(), "bare roi_sample")
-    # the kernel's own device time (torch.profiler): a tiny kernel's events
-    # would time the host's launches while worker processes render clips
-    ms = device_ms(bare, 50)[0]
-    ev = time_ms(bare)
-    wrap = time_ms(lambda: roi.sample_rois(gray, boxes_i, R, **kw))
-    plain = time_ms(lambda: roi.sample_rois_reference(gray, boxes_i, R, **kw))
-    lib = device_ms(lambda: F.grid_sample(g4, grid, mode="bilinear",
-                                          align_corners=False), 50)[0]
-    nbytes = roi_bytes_needed(boxes_i, False, H, W, R) + N * R * R * 4
-    b_ms, b_by = bound_ms(nbytes, 10.0 * N * R * R)
-    log(f"[roi] N={N} H={H} W={W} R={R}: kernel device {ms:.4f} ms (bare C "
-        f"entry, torch.profiler; CUDA events {ev:.4f}, wrapper {wrap:.4f}), "
-        f"plain {plain:.4f} ms, F.grid_sample "
-        f"device {lib:.4f} ms, bound {b_ms * 1e3:.3f} us ({b_by}, "
-        f"{nbytes} B), the kernel at {b_ms / ms:.1%} of it")
+    # the serving batch after an L2 flush (its output fits in the 50 MB
+    # L2), and the long-clip batch: the serving frames tiled to 4 x 1024
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    serve = roi_times("serving", gray, boxes_i, R, kw, flush, floor)
+    del flush
+    reps = -(-ROI_LONG_N // N)
+    gray_l = gray.repeat(reps, 1, 1)[:ROI_LONG_N].contiguous()
+    boxes_l = boxes_i.repeat(reps, 1)[:ROI_LONG_N].contiguous()
+    long = roi_times("long", gray_l, boxes_l, R, kw, None, floor)
+    del gray_l, boxes_l
+    torch.cuda.empty_cache()
     rows.append(dict(
         name="roi_sampler", route="cuda",
         source="lipreading_tpu_torch/csrc/roi_sampler.cu",
         replaces="lipreading_tpu/ops/roi.py:107",
-        launches=0, max_abs_err=max(errs.values()), ms=ms, plain_ms=plain,
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib, wrapper_ms=wrap))
+        launches=0, max_abs_err=max(*errs.values(), long["err"]),
+        ms=serve["ms"], plain_ms=serve["plain_ms"], bound_ms=serve["bound_ms"],
+        bound_by=serve["bound_by"], library_ms=serve["library_ms"],
+        wrapper_ms=serve["wrapper_ms"], floor_ms=floor,
+        ms_raw=serve["ms_raw"], ms_warm=serve["ms_warm"],
+        long={k: long[k] for k in ("ms", "ms_raw", "ms_warm", "wrapper_ms",
+                                   "plain_ms", "library_ms", "bound_ms")}))
 
     # --- CTC greedy: path shape plus the edge cases -------------------------
     V, blank = cfg.model.vocab_size, Vocab().blank_id
     B, T = frames.shape[:2]
     g = torch.Generator(device="cpu").manual_seed(0)
     cases = []
-    for (b, t, v) in ((B, T, V), (B, 1, V), (B, 128, V), (3, 1000, V)):
+    # the path's shape, edge cases, the long clips, then more edge cases
+    # (ragged starts at V 7, double-buffered chunks at T 4096, a warp a
+    # frame at V 2000)
+    for (b, t, v) in ((B, T, V), (B, 1, V), (B, 128, V), (3, 1000, V),
+                      (GREEDY_LONG[0], GREEDY_LONG[1], V),
+                      (5, 3, 7), (2, 4096, V), (3, 50, 2000)):
         # small integers make ties common: the first maximum must win
         lg = torch.randint(0, 4, (b, t, v), generator=g).float()
         ln = torch.randint(0, t + 1, (b,), generator=g, dtype=torch.int32)
         ln[0] = 0
         ln[-1] = t
+        if (b, t) == GREEDY_LONG[:2]:   # the long clips' lengths
+            ln = torch.randint(GREEDY_LONG[2][0], GREEDY_LONG[2][1] + 1, (b,),
+                               generator=g, dtype=torch.int32)
         cases.append((lg.cuda(), ln.cuda()))
     worst = 0
     for lg, ln in cases:
@@ -533,46 +734,19 @@ def phase_kernels(frames, lengths, dev) -> list[dict]:
             f"{bad} ids or counts differ from the plain version")
         check(bad == 0, "CTC greedy disagrees with its plain version")
         worst = max(worst, bad)
-    lg, ln = cases[0]
-    ids = torch.empty((B, T), dtype=torch.int32, device="cuda")
-    cnt = torch.empty((B,), dtype=torch.int32, device="cuda")
-
-    def bare():                     # the C entry alone (device time)
-        return lib_k.ctc_greedy(lg.data_ptr(), ln.data_ptr(), ids.data_ptr(),
-                                cnt.data_ptr(), B, T, V, blank, st)
-
-    kernels.check(bare(), "bare ctc_greedy")
-    ms = device_ms(bare, 50)[0]
-    ev = time_ms(bare)
-    wrap = time_ms(lambda: decode.ctc_greedy_ids(lg, ln, blank))
-    plain = time_ms(lambda: decode.ctc_greedy_ids_reference(lg, ln, blank))
-
-    def library():
-        raw = lg.argmax(-1)
-        prev = F.pad(raw[:, :-1], (1, 0), value=blank)
-        t_idx = torch.arange(T, device="cuda")[None]
-        keep = (raw != blank) & (raw != prev) & (t_idx < ln[:, None])
-        pos = torch.where(keep, torch.cumsum(keep, 1) - 1, T)
-        out = torch.full((B, T + 1), blank, dtype=raw.dtype, device="cuda")
-        return out.scatter_(1, pos, raw)[:, :T], keep.sum(1)
-
-    composite = device_ms(library, 50)[0]
-    valid = int(torch.clamp(ln, 0, T).sum().item())
-    nbytes = valid * V * 4 + B * 4 + B * T * 4 + B * 4
-    b_ms, b_by = bound_ms(nbytes, valid * V)
-    log(f"[greedy] B={B} T={T} V={V}: kernel device {ms:.4f} ms (bare C "
-        f"entry, torch.profiler; CUDA events {ev:.4f}, wrapper {wrap:.4f}), "
-        f"plain {plain:.4f} ms, argmax+mask+"
-        f"cumsum+scatter device {composite:.4f} ms (a yardstick of several "
-        f"calls: no single PyTorch call computes this, so library_ms is "
-        f"null), bound {b_ms * 1e3:.4f} us ({b_by}, {nbytes} B), the kernel "
-        f"at {b_ms / ms:.2%} of it")
+    serve = greedy_times("serving", *cases[0], blank, floor)
+    long = greedy_times("long", *cases[4], blank, floor)
     rows.append(dict(
         name="ctc_greedy", route="cuda",
         source="lipreading_tpu_torch/csrc/ctc_greedy.cu",
         replaces="lipreading_tpu/ops/decode_pallas.py:22",
-        launches=0, max_abs_err=float(worst), ms=ms, plain_ms=plain,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, wrapper_ms=wrap))
+        launches=0, max_abs_err=float(worst), ms=serve["ms"],
+        plain_ms=serve["plain_ms"], bound_ms=serve["bound_ms"],
+        bound_by=serve["bound_by"], library_ms=None,
+        wrapper_ms=serve["wrapper_ms"], floor_ms=floor,
+        composite_ms=serve["composite_ms"],
+        long={k: long[k] for k in ("ms", "wrapper_ms", "plain_ms",
+                                   "composite_ms", "bound_ms")}))
     return rows
 
 
@@ -729,7 +903,7 @@ def ctc_check(name: str, c: dict, g) -> dict:
     check(bool(torch.isfinite(nll).all() and torch.isfinite(grad).all()),
           f"CTC lattice {name}: non-finite nll or grad")
     nll_rel, g_excess = ctc_readings(nll, grad, nll_w, grad_w)
-    same = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    same = all(same_bytes(a, b)
                for a, b in ((nll, nll2), (alpha, alpha2), (grad, grad2)))
     t_idx = torch.arange(T, device="cuda")[None, :, None]
     past = (grad.abs() * (t_idx >= inl[:, None, None])).sum().item()
@@ -957,7 +1131,7 @@ def ctc_plan_sweep(name: str, c: dict, g, got: dict, iters: int) -> None:
             kernels.check(bare[k](), f"bare ctc_lattice_{k} plan {plan}")
         a_out, n_out, g_out, _ = bare["_keep"]
         torch.cuda.synchronize()
-        same = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+        same = all(same_bytes(a, b)
                    for a, b in ((a_out, got["alpha"]), (n_out, got["nll"]),
                                 (g_out, got["grad"])))
         t = {k: device_ms(bare[k], iters)[0] for k in ("fwd", "bwd")}
@@ -1259,7 +1433,7 @@ def phase_flash_kernels() -> list[dict]:
             # the two-pass pair writes without atomics: the same bytes again
             again = (fa.flash_bwd_dq(q, k, v, ln, *got["_bwd_in"]),
                      *fa.flash_bwd_dkv(q, k, v, ln, *got["_bwd_in"]))
-            same = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+            same = all(same_bytes(a, b)
                        for a, b in zip((*got["dq"], *got["dkv"]), again))
             log(f"[flash] {case} {dname}: dq, dk, dv of a second launch of "
                 f"the two-pass pair {'equal' if same else 'DIFFER from'} the "

@@ -5,12 +5,14 @@
 (``csrc/roi_sampler.cu``); ``sample_rois_reference`` is its plain PyTorch
 version, the dense ``W_y @ g @ W_x^T`` product in float32 of
 ``sample_rois_xla``. The wrapper takes the plain version only for tensors on
-the CPU; for CUDA tensors it launches the kernel or raises.
+the CPU; for CUDA tensors it launches the kernel or raises. ``roi_plan`` is
+the kernel's launch, which the wrapper hands to the C entry.
 """
 
 from __future__ import annotations
 
 import contextlib
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -92,6 +94,41 @@ def sample_rois_reference(gray: torch.Tensor, boxes: torch.Tensor,
     return roi
 
 
+# the ROI kernel's launch: the most threads a block (its launch bound in
+# csrc/roi_sampler.cu), row passes a block, floats of the staging buffer
+ROI_THREADS = 256
+ROI_PASSES = 10
+ROI_STAGE_FLOATS = 4096
+
+
+class RoiPlan(NamedTuple):
+    quads: int      # column quads a row (4 adjacent columns a thread)
+    tpr: int        # threads across a row
+    rpp: int        # rows a pass
+    band: int       # rows a block
+    bands: int      # blocks a frame
+    threads: int    # a block: tpr rpp rounded up to a warp
+    blocks: int     # N bands
+    smem: int       # bytes of dynamic shared memory a block
+
+
+def roi_plan(N: int, R: int) -> RoiPlan:
+    """The ROI kernel's launch for N frames of R x R, as ``sample_rois``
+    hands it to the C entry. Thread ``i`` of a block takes column quads
+    ``i % tpr, + tpr, ...`` of rows ``i // tpr, + rpp, ...`` of its band, if
+    ``i // tpr < rpp``. A band of 10 row passes is the whole frame at R 96:
+    on the card, fewer and longer blocks ran faster than bands of 1-5 passes
+    (PERF.md section 6)."""
+    quads = -(-R // 4)
+    tpr = min(quads, ROI_THREADS)
+    rpp = min(ROI_THREADS // tpr, R)
+    band = rpp * ROI_PASSES
+    bands = -(-R // band)
+    smem = (8 * quads + 2 * (-(-band // 4) * 4) + ROI_STAGE_FLOATS) * 4
+    return RoiPlan(quads, tpr, rpp, band, bands, -(-tpr * rpp // 32) * 32,
+                   N * bands, smem)
+
+
 def sample_rois(gray: torch.Tensor, boxes: torch.Tensor, out_size: int = 96,
                 mean: float = 0.421, std: float = 0.165,
                 normalize: bool = True, subpixel: bool = False) -> torch.Tensor:
@@ -119,10 +156,11 @@ def sample_rois(gray: torch.Tensor, boxes: torch.Tensor, out_size: int = 96,
     gray, boxes = gray.contiguous(), boxes.contiguous()
     out = torch.empty((N, out_size, out_size), dtype=torch.float32,
                       device=gray.device)
+    p = roi_plan(N, out_size)
     err = kernels.lib().roi_sample(
         gray.data_ptr(), boxes.data_ptr(), out.data_ptr(), N, H, W, out_size,
-        mean, std, int(normalize), int(subpixel),
-        kernels.stream_ptr(gray.device))
+        mean, std, int(normalize), int(subpixel), p.tpr, p.rpp, p.band,
+        p.threads, p.smem, kernels.stream_ptr(gray.device))
     kernels.check(err, "roi_sample")
     sample_rois.launches += 1
     return out

@@ -74,6 +74,130 @@ def test_greedy_kernel_matches_plain(cuda, B, T, V):
     torch.testing.assert_close(got[1].cpu(), want[1], rtol=0, atol=0)
 
 
+# (N, H, W, R): the long-clip batch (N 4096), an R that is not a multiple
+# of 4 on frames whose rows are not 16-byte aligned (W 161), R 1 and 2
+ROI_EDGE_SHAPES = [(4096, 160, 160, 96), (64, 120, 161, 97), (16, 160, 161, 1),
+                   (8, 33, 161, 2)]
+
+
+def _edge_boxes(seed, n, subpixel, H, W):
+    """Random boxes plus boxes on and past every edge of the frame."""
+    g, b = _gray_and_boxes(seed, n, subpixel, H, W)
+    edges = [(0, 0, 2), (W - 3, H - 3, 3), (-4, H - 10, 12), (W - 10, -4, 12),
+             (0, 0, min(H, W)), (W - 2, 0, 2)]
+    if subpixel:
+        edges += [(-10.5, -10.5, 30.0), (W - 5.25, H - 5.25, 30.0)]
+    for i, e in enumerate(edges[:n]):
+        b[-1 - i] = torch.tensor(e, dtype=b.dtype)
+    return g, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subpixel", [False, True])
+@pytest.mark.parametrize("N,H,W,R", ROI_EDGE_SHAPES)
+def test_roi_kernel_edge_shapes_match_plain(cuda, subpixel, N, H, W, R):
+    """The limits of test_roi_kernel_matches_plain; two launches give the
+    same bytes (no atomics)."""
+    g, b = _edge_boxes(N + R, N, subpixel, H, W)
+    g, b = g.to(cuda), b.to(cuda)
+    for normalize, tol in ((True, 1e-5), (False, 1e-4)):
+        got = roi.sample_rois(g, b, R, normalize=normalize, subpixel=subpixel)
+        again = roi.sample_rois(g, b, R, normalize=normalize,
+                                subpixel=subpixel)
+        want = roi.sample_rois_reference(g, b, R, normalize=normalize,
+                                         subpixel=subpixel)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=tol)
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_roi_div255_equals_the_division(cuda):
+    """The kernel's / 255 (a reciprocal and one fused correction) gives the
+    bits of __fdiv_rn(x, 255) on every float (two NaNs count as equal)."""
+    differ = torch.zeros(3, dtype=torch.int32, device=cuda)
+    kernels.check(kernels.lib().roi_div255_check(
+        differ.data_ptr(), kernels.stream_ptr(cuda)), "roi_div255_check")
+    assert differ.tolist() == [0, 0, 0]
+
+
+# (B, T, V): the long clips (T 1024, one chunk), a chunk and one frame
+# (T 1025), double-buffered chunks (T 4096), utterance starts that are not
+# 16-byte aligned (B 5 x T 3 x V 7), an even V (a padded row), and V 2000
+# (a warp a frame)
+GREEDY_EDGE_SHAPES = [(4, 1024, 31), (3, 1025, 31), (2, 4096, 31), (5, 3, 7),
+                      (3, 200, 8), (3, 40, 2000), (2, 1100, 2000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,V", GREEDY_EDGE_SHAPES)
+def test_greedy_kernel_edge_shapes_match_plain(cuda, B, T, V):
+    """Exact ids and counts with many ties and rows holding NaN (the first
+    NaN counts as the maximum, as in torch.argmax); two launches give the
+    same bytes."""
+    g = torch.Generator().manual_seed(B * T + V)
+    logits = torch.randint(0, 3, (B, T, V), generator=g).float()
+    nan_t = torch.randint(0, T, (B, max(1, T // 7)), generator=g)
+    nan_v = torch.randint(0, V, nan_t.shape, generator=g)
+    logits[torch.arange(B)[:, None], nan_t, nan_v] = float("nan")
+    lengths = torch.randint(0, T + 1, (B,), generator=g, dtype=torch.int32)
+    lengths[0], lengths[-1] = 0, T
+    want = decode.ctc_greedy_ids_reference(logits, lengths)
+    got = decode.ctc_greedy_ids(logits.to(cuda), lengths.to(cuda))
+    again = decode.ctc_greedy_ids(logits.to(cuda), lengths.to(cuda))
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=0)
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=0, atol=0)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_c_entries_refuse_a_bad_plan(cuda):
+    """A plan that would miss a pixel or a frame, break the carry between
+    chunks or overrun shared memory is refused before any launch."""
+    lib, st = kernels.lib(), kernels.stream_ptr(cuda)
+    g, b = _gray_and_boxes(0, 4, False, 160, 160)
+    g, b = g.to(cuda), b.to(cuda)
+    out = torch.empty((4, 96, 96), device=cuda)
+    p = roi.roi_plan(4, 96)
+
+    def roi_entry(tpr, rpp, band, threads, smem):
+        return lib.roi_sample(g.data_ptr(), b.data_ptr(), out.data_ptr(), 4,
+                              160, 160, 96, 0.421, 0.165, 1, 0, tpr, rpp,
+                              band, threads, smem, st)
+
+    assert roi_entry(p.tpr, p.rpp, p.band, p.threads, p.smem) == 0
+    for bad in ((p.tpr, p.rpp + 1, p.band, p.threads, p.smem),   # a row
+                (p.tpr, p.rpp, p.band, 512, p.smem),         # launch bound
+                (p.tpr, p.rpp, p.band, p.threads, 64)):      # no tap room
+        assert roi_entry(*bad) < 0, bad
+    lg = torch.zeros((2, 100, 31), device=cuda)
+    ln = torch.full((2,), 100, dtype=torch.int32, device=cuda)
+    ids = torch.empty((2, 100), dtype=torch.int32, device=cuda)
+    cnt = torch.empty((2,), dtype=torch.int32, device=cuda)
+    q = decode.greedy_plan(100, 31)
+
+    def greedy_entry(sV, chunk, nbuf, buf, threads, smem):
+        return lib.ctc_greedy(lg.data_ptr(), ln.data_ptr(), ids.data_ptr(),
+                              cnt.data_ptr(), 2, 100, 31, 0, sV, chunk, nbuf,
+                              buf, threads, smem, st)
+
+    assert greedy_entry(*q) == 0
+    for bad in ((32, *q[1:]),                            # odd V, padded
+                (q.sV, 64, 1, q.buf_floats, 64, q.smem),  # one buffer, 2 chunks
+                (q.sV, 40, 2, q.buf_floats, 64, q.smem),  # carry, partial chunk
+                (q.sV, q.chunk, 1, 8, q.threads, q.smem),  # buffer too small
+                (*q[:5], 4 * q.buf_floats - 4)):           # smem too small
+        assert greedy_entry(*bad) < 0, bad
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_noop_kernel_launches(cuda):
+    kernels.check(kernels.lib().noop_kernel(kernels.stream_ptr(cuda)),
+                  "noop_kernel")
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_kernels_reject_mixed_devices(cuda):
     with pytest.raises(ValueError):

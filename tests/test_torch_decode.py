@@ -57,6 +57,24 @@ def test_ctc_greedy_ids_matches_jax(name):
     np.testing.assert_array_equal(n.numpy(), p_n)
 
 
+def test_ctc_greedy_ids_matches_jax_long_clips():
+    """The long-clip shape of the serving path with flash attention: B 4 x
+    T 1024 x V 31, lengths 940..980 (one chunk of the kernel), many ties."""
+    rng = np.random.default_rng(1024)
+    logits = rng.integers(0, 3, size=(4, 1024, 31)).astype(np.float32)
+    lengths = rng.integers(940, 981, size=4).astype(np.int32)
+    want_ids, want_n = (np.asarray(x) for x in
+                        j_greedy(jnp.asarray(logits), jnp.asarray(lengths)))
+    p_ids, p_n = (np.asarray(x) for x in ctc_greedy_ids_pallas(
+        jnp.asarray(logits), jnp.asarray(lengths), interpret=True))
+    ids, n = tdec.ctc_greedy_ids(_t(logits), _t(lengths))
+    np.testing.assert_array_equal(ids.numpy(), want_ids)
+    np.testing.assert_array_equal(n.numpy(), want_n)
+    np.testing.assert_array_equal(ids.numpy(), p_ids)
+    np.testing.assert_array_equal(n.numpy(), p_n)
+    assert (n.numpy() > 0).all()
+
+
 def test_ctc_greedy_first_max_and_collapse():
     """A hand-made row: ties go to the lower id; repeats merge; a blank
     splits a repeat; frames past the length are ignored."""

@@ -107,6 +107,30 @@ def test_sample_rois_matches_jax(subpixel, normalize):
         np.testing.assert_allclose(got, pallas, rtol=0, atol=1e-3)
 
 
+@pytest.mark.parametrize("subpixel", [False, True])
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("H,W,R", [(48, 56, 97), (40, 161, 32)])
+def test_sample_rois_matches_jax_at_odd_sizes(subpixel, normalize, H, W, R):
+    """The limits of test_sample_rois_matches_jax at an R that is not a
+    multiple of 4 (97: the kernel's last column quad is partial) and a
+    frame of W 161 (rows that are not 16-byte aligned)."""
+    rng = np.random.default_rng(H + W + R + subpixel)
+    g = rng.uniform(0, 255, size=(5, H, W)).astype(np.float32)
+    b = _boxes(rng, 5, H, W, subpixel)
+    kw = dict(normalize=normalize, subpixel=subpixel)
+    xla = np.asarray(jroi.sample_rois_xla(jnp.asarray(g), jnp.asarray(b), R, **kw))
+    pallas = np.asarray(jroi.sample_rois_pallas(
+        jnp.asarray(g), jnp.asarray(b), R, interpret=True, **kw))
+    got = troi.sample_rois(_t(g), _t(b), R, **kw).numpy()
+    if normalize:
+        np.testing.assert_allclose(got, xla, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(got, pallas, rtol=0, atol=1e-4)
+    else:
+        np.testing.assert_allclose(got, xla, rtol=0,
+                                   atol=np.spacing(np.float32(255)))
+        np.testing.assert_allclose(got, pallas, rtol=0, atol=1e-3)
+
+
 def test_sample_rois_cpu_uses_plain_version_and_counts_nothing():
     g = torch.zeros((2, 8, 8))
     b = torch.tensor([[0, 0, 4], [2, 2, 5]], dtype=torch.int32)
