@@ -71,6 +71,24 @@ Flash attention (``model.flash_attention=1``) adds three phases:
   xla within limits that a planted fault must break, a fixed batch whose
   loss falls, and peak memory with flash on and off.
 
+``[cascade]`` drives cascade decoding as the JAX server decodes (beam 8,
+char-LM weight 0.4): the short clips of ``[path]`` through
+``preprocess_clips`` and ``transcribe_cascade`` at the default margins and
+at ``margin=inf`` (every clip through the joint beam), and ``transcribe``
+with and without the lexicon; every transcript and the default run's flags
+must equal the same calls on the CPU, and the cascade the full beam. The
+long clips of ``[path-flash]`` (flash on, T 1024) go through the joint beam
+at ``margin=inf``; from one encoder output (the card's) the beam must give
+the same transcripts on the card and the CPU, and the CPU's own run from
+the card's ROIs is printed beside them (its bf16 encoder rounds apart from
+the card's, and a near tie may resolve either way). Around each call the
+counts are set to 0 and read: one ROI launch per
+``preprocess_clips``, one greedy launch per cascade call, no CTC lattice
+launch, and with flash one forward launch per encoder layer (the rescore
+leg decodes from the greedy leg's encoder output). It prints the greedy
+and rescore legs' times, the beam steps before the early exit and the ms
+per step, padded frames/s, and each clip's best minus second-best score.
+
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result. Float32 matrix products and cuDNN convolutions run in
 full float32 (TF32 off).
@@ -201,6 +219,9 @@ LONG_TEXTS = (
 LONG_SEED = 500
 LONG_BUCKET = 1024
 LONG_MAX_CHARS = 256        # whole transcripts as targets (sos and eos too)
+# the cascade as the JAX server decodes (scripts/serve.py: beam 8, LM 0.4)
+CASCADE_KW = {"beam": 8, "lm_weight": 0.4}
+RESCORE_BUCKET = 8          # transcribe_cascade's default rescore_bucket
 
 
 class SmokeError(RuntimeError):
@@ -831,7 +852,7 @@ def phase_path(frames, lengths, texts, gpu, rows):
     for h, t, f in zip(hyps, texts, flags):
         log(f"[path]   {h!r:32} ref {t!r:32} margin flag {bool(f)}")
     log(f"[path] corpus CER {cer:.4f}; {int(flags.sum())} of {B} clips below "
-        "the cascade's margin (the beam leg is not ported yet)")
+        "the cascade's margin (the joint beam's leg runs in [cascade])")
 
     # the same run on the CPU, through the plain versions
     t0 = time.perf_counter()
@@ -1643,7 +1664,255 @@ def phase_path_flash(frames, lengths, gpu, long):
           f"long clips: {out['on']['launches']} forward launches")
     check(out["off"]["launches"] == 0, "flash off launched the flash kernel")
     check(on_t == cpu_texts, f"long clips: card {on_t} != CPU {cpu_texts}")
-    del on, cpu_on, rois
+    return {"on": on, "cpu_on": cpu_on, "rois": rois, "lens": lens}
+
+
+def score_gaps(rows: int) -> list[float]:
+    """Best minus second-best selection score of the last beam's first
+    ``rows`` samples (``backtrack_best.last_scores``)."""
+    import torch
+
+    from lipreading_tpu_torch.ops.decode import backtrack_best
+
+    top2 = torch.topk(backtrack_best.last_scores[:rows], 2, dim=1).values
+    return (top2[:, 0] - top2[:, 1]).tolist()
+
+
+def beam_profile(fn) -> dict:
+    """One warmed call of ``fn()`` (a beam; it returns its step count) under
+    ``torch.profiler`` -> its steps, host ms (perturbed by the profiler),
+    device busy ms (every kernel, copy and fill on the one stream), device
+    ops, and the host ms spent in the per-step reads of ``finished``
+    (``aten::_local_scalar_dense``: the copy to the host and the wait for
+    the device). An empty profile is taken again, as in ``device_ms``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            steps = fn()
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - t0) * 1e3
+        events = prof.events()
+        dev = [e for e in events if e.device_type == DeviceType.CUDA]
+        if dev:
+            return {"steps": steps, "host_ms": host, "ops": len(dev),
+                    "device_ms": sum(e.time_range.elapsed_us()
+                                     for e in dev) / 1e3,
+                    "sync_ms": sum(e.cpu_time_total for e in events
+                                   if e.name == "aten::_local_scalar_dense")
+                    / 1e3}
+        log(f"[profiler] beam profile {attempt} of {PROFILE_ATTEMPTS} "
+            "recorded no device time: taken again")
+        time.sleep(1.0)
+    check(False, f"torch.profiler recorded no device time in "
+          f"{PROFILE_ATTEMPTS} beam profiles")
+
+
+def phase_cascade(frames, lengths, gpu, flash):
+    """Cascade decoding on the card: the short clips of [path] through
+    preprocess_clips and transcribe_cascade (default margins and
+    margin=inf), transcribe with and without the lexicon, each against the
+    same calls on the CPU; the cascade against the full beam; the long
+    clips of [path-flash] (flash on, T 1024) through the joint beam at
+    margin=inf against the CPU from the card's ROIs. Launch counts around
+    every call; the legs' times, the beam's steps and score gaps."""
+    import torch
+
+    from lipreading_tpu_torch import infer
+    from lipreading_tpu_torch.ops import flash_attention as fa
+    from lipreading_tpu_torch.ops.ctc import ctc_lattice_bwd, ctc_lattice_fwd
+    from lipreading_tpu_torch.ops.decode import ctc_greedy_ids, early_exit_scan
+    from lipreading_tpu_torch.ops.preprocess import preprocess_clips
+    from lipreading_tpu_torch.ops.roi import sample_rois
+    from lipreading_tpu_torch.text import Vocab
+
+    t_phase = time.perf_counter()
+    lattice = (ctc_lattice_fwd, ctc_lattice_bwd)
+    counted = (sample_rois, ctc_greedy_ids) + lattice + tuple(fa.WRAPPERS)
+    cpu = load_port("cpu")
+    dev = next(gpu["model"].parameters()).device
+    B, T = frames.shape[:2]
+
+    def rois_of(port):
+        dev = next(port["model"].parameters()).device
+        with torch.inference_mode():
+            reset(counted)
+            rois = preprocess_clips(port["det"], port["ert"],
+                                    torch.as_tensor(frames, device=dev),
+                                    port["cfg"].preprocess)
+        if dev.type == "cuda":
+            check(sample_rois.launches == 1,
+                  f"preprocess_clips: {sample_rois.launches} ROI launches")
+        return rois
+
+    def run(port, rois, lens, call, **kw):
+        """One decode call with the counts set to 0 just before it and read
+        just after -> (texts, flags or None, seconds, beam steps)."""
+        on_card = rois.device.type == "cuda"
+        if on_card:
+            torch.cuda.synchronize()
+        reset(counted)
+        steps0 = early_exit_scan.steps
+        t0 = time.perf_counter()
+        if call == "cascade":
+            texts, flags = infer.transcribe_cascade(
+                port["model"], port["cfg"], rois, lens, return_flags=True,
+                **CASCADE_KW, **kw)
+        else:
+            texts, flags = infer.transcribe(port["model"], port["cfg"], rois,
+                                            lens, **CASCADE_KW, **kw), None
+        if on_card:
+            torch.cuda.synchronize()
+            want = 1 if call == "cascade" else 0
+            check(ctc_greedy_ids.launches == want,
+                  f"{call} {kw}: {ctc_greedy_ids.launches} greedy launches, "
+                  f"want {want}")
+            check(all(w.launches == 0 for w in lattice),
+                  f"{call} {kw}: a CTC lattice kernel launched")
+        return (texts, flags, time.perf_counter() - t0,
+                early_exit_scan.steps - steps0)
+
+    rois = rois_of(gpu)
+    lens = torch.as_tensor(lengths, device=dev)
+    run(gpu, rois, lens, "cascade", margin=float("inf"))     # warm-up
+    calls = (("cascade", {}), ("cascade", {"margin": float("inf")}),
+             ("transcribe", {}), ("transcribe", {"use_lexicon": True}))
+    card = {}
+    for call, kw in calls:
+        texts, flags, dt, steps = run(gpu, rois, lens, call, **kw)
+        card[call, str(kw)] = (texts, flags)
+        if kw.get("margin") == float("inf"):
+            gaps = score_gaps(B)
+        log(f"[cascade] {call} {kw or 'default margins'}: {dt * 1e3:.1f} ms "
+            f"host clock ({B * T / dt:.0f} padded frames/s), {steps} beam "
+            f"steps" + ("" if flags is None else
+                        f", {int(flags.sum())} of {B} clips rescored"))
+    full = card["transcribe", "{}"][0]
+    for (call, kw), (texts, flags) in card.items():
+        if call == "cascade":
+            check(texts == full, f"cascade {kw} {texts} != full beam {full}")
+    for h, g, t in zip(full, gaps, card["cascade", "{}"][1]):
+        log(f"[cascade]   {h!r:32} best - second score {g:.4f}, flagged "
+            f"{bool(t)}")
+
+    # the legs, apart: the greedy leg on every clip, the joint beam on the
+    # flagged rows of the default run from the greedy leg's encoder output
+    flagged = torch.as_tensor(card["cascade", "{}"][1].nonzero()[0],
+                              device=dev)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, _, enc = infer.greedy_conf(gpu["model"], gpu["cfg"], rois,
+                                         lens.to(torch.int32))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        steps0 = early_exit_scan.steps
+        if len(flagged):
+            infer.decode_ids_from_enc(gpu["model"], gpu["cfg"], enc[flagged],
+                                      lens[flagged], **CASCADE_KW)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    steps = early_exit_scan.steps - steps0
+    log(f"[cascade] legs (host clock, synchronised): greedy "
+        f"{(t1 - t0) * 1e3:.2f} ms on {B} clips, rescore "
+        f"{(t2 - t1) * 1e3:.2f} ms on {len(flagged)} clips, {steps} steps "
+        f"before the early exit, "
+        + (f"{(t2 - t1) * 1e3 / steps:.2f} ms a step" if steps else
+           "no step"))
+
+    def beam_all():
+        s0 = early_exit_scan.steps
+        infer.decode_ids_from_enc(gpu["model"], gpu["cfg"], enc, lens,
+                                  **CASCADE_KW)
+        return early_exit_scan.steps - s0
+
+    if dev.type == "cuda":
+        with torch.inference_mode():
+            pr = beam_profile(beam_all)
+        n = max(pr["steps"], 1)
+        log(f"[cascade] profile of the joint beam on all {B} clips: "
+            f"{pr['steps']} steps, host {pr['host_ms']:.1f} ms under the "
+            f"profiler, device busy {pr['device_ms']:.2f} ms (idle "
+            f"{100 * (1 - pr['device_ms'] / pr['host_ms']):.1f} %), "
+            f"{pr['ops'] / n:.0f} device ops a step, "
+            f"{pr['sync_ms']:.2f} ms ({pr['sync_ms'] / n:.3f} a step) in "
+            "the per-step reads of finished")
+
+    # the same calls on the CPU, from the frames (plain versions there)
+    t0 = time.perf_counter()
+    cpu_rois = rois_of(cpu)
+    cpu_lens = torch.as_tensor(lengths)
+    for call, kw in calls:
+        texts, flags, _, _ = run(cpu, cpu_rois, cpu_lens, call, **kw)
+        want, want_flags = card[call, str(kw)]
+        check(texts == want, f"{call} {kw}: card {want} != CPU {texts}")
+        if flags is not None and not kw:
+            check((flags == want_flags).all(),
+                  f"cascade flags: card {want_flags} != CPU {flags}")
+    log(f"[cascade] CPU runs ({time.perf_counter() - t0:.1f} s): transcripts "
+        "and flags equal the card's; the cascade equals the full beam")
+
+    # the long clips: flash on, T 1024, every clip through the joint beam
+    on, cpu_on = flash["on"], flash["cpu_on"]
+    rois_l, lens_l = flash["rois"], flash["lens"]
+    Bl, Tl = rois_l.shape[:2]
+    layers = on["cfg"].model.tf_layers
+    texts, _, dt, steps = run(on, rois_l, lens_l, "cascade",
+                              margin=float("inf"))
+    check(fa.flash_fwd.launches == layers or rois_l.device.type != "cuda",
+          f"long cascade: {fa.flash_fwd.launches} flash forward launches, "
+          f"want {layers} (the rescore leg must not encode again)")
+    gaps = score_gaps(Bl)
+    log(f"[cascade] {Bl} long clips x {Tl} frames, flash on, margin=inf: "
+        f"{dt * 1e3:.1f} ms host clock ({Bl * Tl / dt:.0f} padded frames/s), "
+        f"{steps} beam steps ({dt * 1e3 / max(steps, 1):.2f} ms a step, the "
+        "greedy leg included)")
+    # the beam alone on both devices, from one encoder output (the card's),
+    # in the rows the cascade decodes (padded to its bucket with the last)
+    take = torch.as_tensor(list(range(Bl)) + [Bl - 1] * (-Bl % RESCORE_BUCKET))
+    vocab = Vocab()
+    with torch.inference_mode():
+        enc = infer.greedy_conf(on["model"], on["cfg"], rois_l, lens_l)[3]
+        same = {}
+        for port in (on, cpu_on):
+            d = next(port["model"].parameters()).device
+            ids, n = infer.decode_ids_from_enc(
+                port["model"], port["cfg"], enc[take.to(enc.device)].to(d),
+                lens_l.cpu()[take].to(d), **CASCADE_KW)
+            ids, n = ids.cpu().numpy(), n.cpu().numpy()
+            same[d.type] = ([vocab.decode(ids[b, :n[b]]) for b in range(Bl)],
+                            score_gaps(Bl))
+    check(same["cpu"][0] == same[dev.type][0],
+          f"long clips, one encoder output: card {same[dev.type][0]} != CPU "
+          f"{same['cpu'][0]}")
+    # end to end: the CPU's own encoder from the card's ROIs. Card and CPU
+    # encoders differ in bf16 rounding (ROADMAP F4), so a clip whose two
+    # best hypotheses are a near tie may resolve either way: reported
+    t0 = time.perf_counter()
+    cpu_texts, _, _, _ = run(cpu_on, rois_l.cpu(), lens_l.cpu(), "cascade",
+                             margin=float("inf"))
+    cpu_s = time.perf_counter() - t0
+    cpu_gaps = score_gaps(Bl)
+    for b in range(Bl):
+        log(f"[cascade]   long {b}: {texts[b]!r} best - second score "
+            f"{gaps[b]:.4f} (CPU from the card's encoder "
+            f"{same['cpu'][1][b]:.4f}); CPU end to end "
+            + ("equal" if cpu_texts[b] == texts[b] else
+               f"DIFFERS: {cpu_texts[b]!r}")
+            + f", best - second {cpu_gaps[b]:.4f}")
+    n_eq = sum(a == b for a, b in zip(texts, cpu_texts))
+    log(f"[cascade] long clips: the beam from the card's encoder output gives "
+        f"the same transcripts on the card and the CPU; the card's cascade "
+        f"{'equals' if same[dev.type][0] == texts else 'DIFFERS from'} that "
+        f"beam; end to end (CPU {cpu_s:.1f} s, its encoder from the card's "
+        f"ROIs) {n_eq} of {Bl} clips equal (reported, not gated); phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def long_batch(long, cfg):
@@ -2076,7 +2345,9 @@ def main() -> int:
         long = long_clips(long_futures)
         log(f"[path-flash] long clips rendered in worker processes "
             f"(waited {time.perf_counter() - t0:.1f} s)")
-        phase_path_flash(frames, lengths, gpu, long)
+        flash = phase_path_flash(frames, lengths, gpu, long)
+        phase_cascade(frames, lengths, gpu, flash)
+        del flash
         phase_train(gpu, rows)
         phase_train_flash(gpu, long, rows)
         phase_train_parity(gpu)

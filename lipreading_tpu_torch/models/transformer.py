@@ -1,6 +1,7 @@
 """Transformer encoder and decoder (counterpart of ``mha``, ``mha_flash``,
-``mlp``, ``encoder_apply`` and the teacher-forced ``decoder_apply`` in
-``lipreading_tpu/models/transformer.py``).
+``mlp``, ``encoder_apply``, the teacher-forced ``decoder_apply`` and the
+incremental ``decoder_init_cache``, ``decoder_cross_kv`` and ``decoder_step``
+in ``lipreading_tpu/models/transformer.py``).
 
 Pre-LN blocks; attention scores in the activation type, cast to float32 for
 the ``-1e30`` mask and the softmax, cast back for the weighted sum. With
@@ -10,8 +11,10 @@ in float32 from the upcast inputs, no [B, H, T, T] buffer), with the
 backward that ``flash_bwd`` picks; the projections are the same. The
 positional tables ``pos`` are parameters (trained and weight-decayed, as in
 the JAX package). Dropout, drawn from an explicit generator, follows every
-residual branch in training. The decoder's incremental step with a KV cache
-belongs to the joint beam, a later slice.
+residual branch in training. The decoder's incremental step reads and
+writes a KV cache in the activation type, with the cross-attention K/V
+computed once per decode (the beams of ``ops/decode.py`` and
+``ops/joint_decode.py`` step it).
 """
 
 from __future__ import annotations
@@ -194,3 +197,99 @@ class TransformerDecoder(nn.Module):
                 rate=0.0):
         return decoder_apply(self, targets_in, enc, enc_lengths,
                              self.cfg.tf_heads, dtype, gen, rate)
+
+
+def decoder_init_cache(p: TransformerDecoder, batch: int, max_len: int,
+                       heads: int, dtype: torch.dtype = torch.float32) -> dict:
+    """KV cache for incremental decoding: per layer ``k`` and ``v``
+    [B, max_len, H, Dh] in ``dtype``, zero, and the step position ``pos``.
+
+    Every tensor is batch-leading, so the beams gather the whole cache row
+    by row (``ops/decode.tree_map``). ``pos`` is a Python int: decoding is
+    in lockstep, and an int indexes the cache without a device read (the
+    JAX package carries it as a [B] vector that is always uniform)."""
+    dim = p.embed.table.shape[1]
+    dh = dim // heads
+    dev = p.embed.table.device
+    return {
+        "layers": [
+            {"k": torch.zeros((batch, max_len, heads, dh), dtype=dtype,
+                              device=dev),
+             "v": torch.zeros((batch, max_len, heads, dh), dtype=dtype,
+                              device=dev)}
+            for _ in p.layers
+        ],
+        "pos": 0,
+    }
+
+
+def decoder_cross_kv(p: TransformerDecoder, enc: torch.Tensor, heads: int,
+                     dtype: torch.dtype | None = None) -> list[dict]:
+    """Per-layer cross-attention K/V [B, T, H, Dh] from the encoder output.
+
+    They depend only on ``enc``, so they are computed once per decode, not
+    per step; their rows are identical across the beams of one sample (enc
+    is tiled by repeat), so the beams never gather them."""
+    B, T, D = enc.shape
+    dh = D // heads
+    return [{"k": lp.cross.k(enc, dtype).reshape(B, T, heads, dh),
+             "v": lp.cross.v(enc, dtype).reshape(B, T, heads, dh)}
+            for lp in p.layers]
+
+
+def decoder_step(p: TransformerDecoder, cache: dict, token: torch.Tensor,
+                 enc: torch.Tensor, enc_lengths: torch.Tensor, heads: int,
+                 dtype: torch.dtype | None = None,
+                 cross_kv: list[dict] | None = None):
+    """One incremental step: token [B] -> (cache', logits [B, V] float32).
+
+    Self-attention writes this step's K/V into the cache (in the cache's
+    type) at ``pos`` and attends over the positions up to it. ``cross_kv``
+    (``decoder_cross_kv``) supplies the cross-attention K/V; when None they
+    are recomputed from ``enc`` (the same arithmetic). Scores run in the
+    activation type and are divided by sqrt(Dh) before the float32 cast and
+    the -1e30 mask; the softmax runs in float32 and is cast back."""
+    B = token.shape[0]
+    T = enc.shape[1]
+    dim = p.embed.table.shape[1]
+    dh = dim // heads
+    pos = cache["pos"]
+    maxlen = cache["layers"][0]["k"].shape[1]
+    scale = math.sqrt(dh)
+
+    h = p.embed(token, dtype) * math.sqrt(enc.shape[-1])
+    h = h + p.pos[pos].to(h.dtype)
+    h = h[:, None, :]                                       # [B, 1, D]
+    enc_mask = length_mask(enc_lengths, T)[:, None, None, :]
+    pos_mask = (torch.arange(maxlen, device=h.device)
+                <= pos)[None, None, None, :]               # [1, 1, 1, maxlen]
+    new_layers = []
+    for li, (lp, lc) in enumerate(zip(p.layers, cache["layers"])):
+        sp = getattr(lp, "self")
+        hn = lp.ln1(h)
+        q = sp.q(hn, dtype).reshape(B, 1, heads, dh)
+        k_all, v_all = lc["k"].clone(), lc["v"].clone()
+        k_all[:, pos] = sp.k(hn, dtype).reshape(B, heads, dh).to(k_all.dtype)
+        v_all[:, pos] = sp.v(hn, dtype).reshape(B, heads, dh).to(v_all.dtype)
+        new_layers.append({"k": k_all, "v": v_all})
+        scores = torch.einsum("bqhd,bkhd->bhqk", q,
+                              k_all.to(q.dtype)) / scale
+        scores = torch.where(pos_mask, scores.float(), -1e30)
+        w = torch.softmax(scores, dim=-1).to(q.dtype)
+        attn = torch.einsum("bhqk,bkhd->bqhd", w, v_all.to(q.dtype))
+        h = h + sp.o(attn.reshape(B, 1, dim), dtype)
+        if cross_kv is None:
+            h = h + lp.cross(lp.ln2(h), enc, enc_mask, heads, dtype)
+        else:
+            cp = lp.cross
+            qc = cp.q(lp.ln2(h), dtype).reshape(B, 1, heads, dh)
+            kc, vc = cross_kv[li]["k"], cross_kv[li]["v"]
+            sc = torch.einsum("bqhd,bkhd->bhqk", qc, kc.to(qc.dtype)) / scale
+            sc = torch.where(enc_mask, sc.float(), -1e30)
+            wc = torch.softmax(sc, dim=-1).to(qc.dtype)
+            ac = torch.einsum("bhqk,bkhd->bqhd", wc, vc.to(qc.dtype))
+            h = h + cp.o(ac.reshape(B, 1, dim), dtype)
+        h = h + lp.mlp(lp.ln3(h), dtype)
+    h = p.ln_out(h)
+    logits = p.out(h, dtype)[:, 0, :].float()
+    return {"layers": new_layers, "pos": pos + 1}, logits

@@ -15,7 +15,7 @@ device inside the step, without gradients, as the JAX step takes none
 through it; on a CUDA device the step's CTC loss runs the lattice kernels.
 
 Later slices: the dataview batches (``data/dataset.py``), the tracked fused
-step, ``remat`` and ``evaluate`` (it needs the joint beam).
+step, ``remat`` and ``evaluate`` (a held-out eval on the joint beam).
 """
 
 from __future__ import annotations
@@ -39,9 +39,9 @@ from lipreading_tpu_torch.train.checkpoint import (
 from lipreading_tpu_torch.train.metrics_log import MetricsLogger
 from lipreading_tpu_torch.train.optim import AdamW
 
-EVAL_SLICE = ("evaluate needs the joint CTC/attention beam (infer.transcribe, "
-              "beam_width 8), ROADMAP queue 1 item 5, a later slice of the "
-              "port")
+EVAL_SLICE = ("evaluate (the held-out eval on the joint CTC/attention beam, "
+              "infer.transcribe at beam_width 8) is ROADMAP queue 1 item 9, "
+              "step 4, a later slice of the port")
 
 
 def eval_falls(step: int, steps: int, eval_every: int) -> bool:

@@ -552,3 +552,46 @@ def test_flash_two_pass_long_clip_matches_plain(cuda):
     for a, w in zip(got, want):
         assert torch.isfinite(a.float()).all()
         assert _rel(a, w) <= FLASH_REL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_cascade_on_the_card_matches_the_cpu(cuda):
+    """The universal4 cascade (beam 8, LM 0.4) on two fixture clips, from
+    frames: every clip through the joint beam (margin=inf) and at the
+    default margins, card against CPU; a cascade call launches the greedy
+    kernel once and no CTC lattice kernel."""
+    from lipreading_tpu_torch import infer, io
+    from lipreading_tpu_torch.fixtures import make_clip
+    from lipreading_tpu_torch.ops.detector import params_to_torch
+    from lipreading_tpu_torch.ops.ert import model_to_torch
+    from lipreading_tpu_torch.ops.preprocess import preprocess_clips
+
+    clips = [make_clip(s) for s in (101, 107)]
+    T = -(-max(len(c.frames) for c in clips) // 32) * 32
+    frames = np.zeros((2, T) + clips[0].frames.shape[1:], np.uint8)
+    for b, c in enumerate(clips):
+        frames[b, :len(c.frames)] = c.frames
+    lengths = np.asarray([len(c.frames) for c in clips], np.int32)
+    det_np, ert_np = io.load_assets()
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        model, cfg = io.load_release_model(device=dev)
+        rois = preprocess_clips(params_to_torch(det_np, dev),
+                                model_to_torch(ert_np, dev),
+                                torch.as_tensor(frames, device=dev),
+                                cfg.preprocess)
+        for margin in (float("inf"), 8.0):
+            greedy = decode.ctc_greedy_ids.launches
+            lattice = (ctc.ctc_lattice_fwd.launches
+                       + ctc.ctc_lattice_bwd.launches)
+            texts, flags = infer.transcribe_cascade(
+                model, cfg, rois, lengths, beam=8, lm_weight=0.4,
+                margin=margin, return_flags=True)
+            if dev.type == "cuda":
+                assert decode.ctc_greedy_ids.launches == greedy + 1
+                assert (ctc.ctc_lattice_fwd.launches
+                        + ctc.ctc_lattice_bwd.launches) == lattice
+            out[dev.type, margin] = (texts, flags.tolist())
+    for margin in (float("inf"), 8.0):
+        assert out["cuda", margin] == out["cpu", margin]
+    assert out["cuda", 8.0][0] == out["cuda", float("inf")][0]
