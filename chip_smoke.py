@@ -89,6 +89,33 @@ leg decodes from the greedy leg's encoder output). It prints the greedy
 and rescore legs' times, the beam steps before the early exit and the ms
 per step, padded frames/s, and each clip's best minus second-best score.
 
+The default serving deployment (``scripts/serve.py``'s defaults: tracked
+preprocessing with the conv landmarker, the cascade) adds three phases:
+
+* ``[tracked]``: the serving clips plus ``make_clip(61)`` with frames 4-6
+  blanked and ``make_clip(62)`` with a second face (10 clips x 96 frames)
+  through ``preprocess_clips_tracked`` on the card and on the CPU: ``valid``
+  equal, the face boxes, landmarks and ROIs within limits that a planted
+  fault (the card's frames shifted one pixel) must break; the cutaway's
+  frames invalid with frame 3's box and the second face never taking the
+  track (the JAX robustness tests' properties); kernel 1 at the face-crop
+  shape (N 960, R 64, integer boxes, ``normalize=0``) against its plain
+  version, timed as in ``[roi]``; 2 ROI launches a tracked call and 1
+  greedy launch a cascade call; each stage's host ms and the tracking
+  loop's device ops;
+* ``[segmented]``: a cutaway video and a hard cut through
+  ``preprocess_padded_tracked`` and ``transcribe_segmented(cascade=True)``:
+  2 segments each, spans and transcripts equal on the card and the CPU;
+* ``[serve]``: ``serve()`` of ``python -m lipreading_tpu_torch.serve`` on 64
+  rendered fixture clips (B 16, bucket 96, beam 8, LM 0.4) with the launch
+  counts set to 0 before and read after: its JSON report, each steady
+  batch's stage split, every result present, ``0 <= rescored_frac <= 1``,
+  the ring's processes gone; on one steady batch's own inputs, kernel 1
+  (face crop N 1536 R 64, normalize=0; sub-pixel mouth ROIs N 1536 R 96)
+  and kernel 2 (B 16 x T 96) against their plain versions and timed; a
+  profile of that batch (device busy ms and idle share); the first 4
+  clips' transcripts equal the CPU's.
+
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result. Float32 matrix products and cuDNN convolutions run in
 full float32 (TF32 off).
@@ -221,6 +248,17 @@ LONG_BUCKET = 1024
 LONG_MAX_CHARS = 256        # whole transcripts as targets (sos and eos too)
 # the cascade as the JAX server decodes (scripts/serve.py: beam 8, LM 0.4)
 CASCADE_KW = {"beam": 8, "lm_weight": 0.4}
+# [tracked]: frames of make_clip(61) blanked; limits on max |card - CPU| of
+# the tracked face boxes (px), the conv landmarks (px) and the ROIs, each
+# between the card's reading (7.6e-5, 3.1e-5, 3.6e-5 on the H100) and a
+# planted fault's (the card's frames shifted 1 px: 19.7, 7.9, 3.6)
+TRACK_GAP = (4, 5, 6)
+TRACK_LIMITS = {"face_boxes": 1e-3, "landmarks": 5e-4, "rois": 5e-4}
+# [serve]: scripts/serve.py's defaults, the fixture clips rendered in the
+# ring's workers
+SERVE_KW = dict(source="render", n_clips=64, B=16, bucket=96, beam=8,
+                lm_weight=0.4, tracked=True, landmarker="conv")
+SERVE_CPU_CLIPS = 4         # [serve]'s first clips decoded on the CPU too
 RESCORE_BUCKET = 8          # transcribe_cascade's default rescore_bucket
 
 
@@ -525,8 +563,8 @@ def roi_grid(boxes, N: int, H: int, W: int, R: int):
 
 def roi_times(name: str, gray, boxes, R: int, kw: dict, flush,
               floor: float) -> dict:
-    """The ROI kernel at one shape (integer boxes, the main path's): the
-    same bytes over two launches, max|kernel - plain|, its own device time
+    """The ROI kernel at one shape (integer boxes, or float boxes with
+    ``kw["subpixel"]``): the same bytes over two launches, max|kernel - plain|, its own device time
     (torch.profiler, bare C entry) with normalize=1 and 0, after an L2
     flush when ``flush`` is given (a write of that buffer between
     launches), warm beside; the wrapper's time (CUDA events, warm), the
@@ -538,6 +576,7 @@ def roi_times(name: str, gray, boxes, R: int, kw: dict, flush,
     from lipreading_tpu_torch.ops import roi
 
     N, H, W = gray.shape
+    sub = bool(kw.get("subpixel", False))
     got = roi.sample_rois(gray, boxes, R, **kw)
     again = roi.sample_rois(gray, boxes, R, **kw)
     want = roi.sample_rois_reference(gray, boxes, R, **kw)
@@ -553,8 +592,8 @@ def roi_times(name: str, gray, boxes, R: int, kw: dict, flush,
     def bare(norm: int):   # the C entry alone
         return lib_k.roi_sample(
             gray.data_ptr(), boxes.data_ptr(), out.data_ptr(), N, H, W, R,
-            kw["mean"], kw["std"], norm, 0, p.tpr, p.rpp, p.band, p.threads,
-            p.smem, st)
+            kw["mean"], kw["std"], norm, int(sub), p.tpr, p.rpp, p.band,
+            p.threads, p.smem, st)
 
     def flushed(norm: int):
         if flush is not None:
@@ -574,7 +613,7 @@ def roi_times(name: str, gray, boxes, R: int, kw: dict, flush,
     lib = device_ms(lambda: F.grid_sample(g4, grid, mode="bilinear",
                                           align_corners=False), iters)[0]
     del grid
-    nbytes = roi_bytes_needed(boxes, False, H, W, R) + N * R * R * 4
+    nbytes = roi_bytes_needed(boxes, sub, H, W, R) + N * R * R * 4
     b_ms, b_by = bound_ms(nbytes, 10.0 * N * R * R)
     log(f"[roi] {name} N={N} H={H} W={W} R={R}: max |kernel - plain| = "
         f"{err:.3g}; a second launch gives {'the same' if same else 'OTHER'} "
@@ -1915,6 +1954,370 @@ def phase_cascade(frames, lengths, gpu, flash):
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+def tracked_batch(frames, lengths):
+    """[tracked]'s input: the serving clips plus make_clip(61) with frames
+    4-6 blanked and make_clip(62) with a second face, zero-padded to the
+    serving clips' length -> (frames [10, T, H, W, 3] u8, lengths [10])."""
+    import numpy as np
+
+    from lipreading_tpu_torch.fixtures import (
+        blank_out_frames,
+        make_clip,
+        paste_second_face,
+    )
+
+    extra = [blank_out_frames(make_clip(61), TRACK_GAP, seed=2),
+             paste_second_face(make_clip(62), donor_seed=901)]
+    B, T = frames.shape[:2]
+    out = np.zeros((B + len(extra),) + frames.shape[1:], np.uint8)
+    out[:B] = frames
+    for k, f in enumerate(extra):
+        out[B + k, :len(f)] = f[:T]
+    lens = np.concatenate([lengths, [min(len(f), T) for f in extra]])
+    return out, lens.astype(np.int32)
+
+
+def track_readings(card: dict, cpu: dict) -> dict:
+    """Max |card - CPU| of the tracked face boxes (px), the landmarks (px)
+    and the ROIs (normalised), over every frame."""
+    return {k: (card[k].float().cpu() - cpu[k].float()).abs().max().item()
+            for k in TRACK_LIMITS}
+
+
+def tracked_run(srv, frames, mark=None) -> dict:
+    """preprocess_clips_tracked (conv landmarker) on the server's device ->
+    {rois, valid, face_boxes, landmarks}."""
+    import torch
+
+    from lipreading_tpu_torch.ops.preprocess import preprocess_clips_tracked
+
+    with torch.inference_mode():
+        rois, valid, aux = preprocess_clips_tracked(
+            srv["det"], srv["presence"], srv["lmk"],
+            torch.as_tensor(frames, device=srv["device"]),
+            srv["cfg"].preprocess, return_aux=True, mark=mark)
+    return {"rois": rois, "valid": valid, "face_boxes": aux["face_boxes"],
+            "landmarks": aux["landmarks"]}
+
+
+def phase_tracked(frames, lengths, rows):
+    """[tracked]: the serving clips plus the cutaway and second-face clips
+    through preprocess_clips_tracked with the conv landmarker, card against
+    CPU, the JAX tests' tracking properties on the card, kernel 1 at the
+    face-crop shape against its plain version and timed, launch counts and
+    the host ms of each stage."""
+    import numpy as np
+    import torch
+
+    from lipreading_tpu_torch import infer
+    from lipreading_tpu_torch.ops import roi
+    from lipreading_tpu_torch.ops.decode import ctc_greedy_ids
+    from lipreading_tpu_torch.ops.landmarker import CROP, round_face_boxes
+    from lipreading_tpu_torch.ops.tracking import track_boxes
+    from lipreading_tpu_torch.serve import StageClock, load_server
+
+    t_phase = time.perf_counter()
+    frames, lens = tracked_batch(frames, lengths)
+    B, T, H, W, _ = frames.shape
+    gpu, cpu = load_server(device="cuda"), load_server(device="cpu")
+    tracked_run(gpu, frames)                                  # warm-up
+    torch.cuda.synchronize()
+    reset((roi.sample_rois,))
+    card = tracked_run(gpu, frames)
+    torch.cuda.synchronize()
+    check(roi.sample_rois.launches == 2,
+          f"tracked call: {roi.sample_rois.launches} ROI launches, want 2")
+    t0 = time.perf_counter()
+    ref = tracked_run(cpu, frames)
+    cpu_s = time.perf_counter() - t0
+    valid = card["valid"].cpu()
+    check(torch.equal(valid, ref["valid"]),
+          f"valid: card {valid.sum().item()} valid frames, CPU "
+          f"{ref['valid'].sum().item()}, at other frames")
+    read = track_readings(card, ref)
+
+    # the planted fault: the card's frames shifted one pixel to the right
+    fault = tracked_run(gpu, np.roll(frames, 1, axis=3))
+    read_fault = track_readings(fault, ref)
+    for k, lim in TRACK_LIMITS.items():
+        log(f"[tracked] {k}: card vs CPU max |diff| {read[k]:.4g}, limit "
+            f"{lim:g}, planted fault (frames shifted 1 px) {read_fault[k]:.4g}")
+        check(read[k] <= lim, f"tracked {k}: card vs CPU {read[k]} > {lim}")
+        check(read_fault[k] > lim, f"tracked {k}: the planted fault's "
+              f"{read_fault[k]} is within the limit {lim}")
+    n_inv = [int((~valid[b, :lens[b]]).sum()) for b in range(B)]
+    log(f"[tracked] {B} clips x {T} frames at {H}x{W}: invalid frames "
+        f"inside each clip's length {n_inv} (card equal to CPU, CPU run "
+        f"{cpu_s:.1f} s)")
+
+    # the JAX robustness tests' properties, on the card
+    gap_row, face_row = B - 2, B - 1
+    check(valid[gap_row, :12].tolist() == [t not in TRACK_GAP
+                                           for t in range(12)],
+          f"cutaway clip: valid {valid[gap_row, :12].tolist()}")
+    fb = card["face_boxes"].cpu().numpy()
+    for t in TRACK_GAP:
+        check(np.array_equal(fb[gap_row, t], fb[gap_row, TRACK_GAP[0] - 1]),
+              f"cutaway frame {t}: box {fb[gap_row, t]} is not frame "
+              f"{TRACK_GAP[0] - 1}'s {fb[gap_row, TRACK_GAP[0] - 1]}")
+    from lipreading_tpu_torch.fixtures import make_clip
+
+    truth = make_clip(62).boxes
+    worst = 0.0
+    for t in range(12):
+        x0, y0, w, h = truth[t]
+        d = np.hypot(fb[face_row, t, 0] + fb[face_row, t, 2] / 2 - x0 - w / 2,
+                     fb[face_row, t, 1] + fb[face_row, t, 2] / 2 - y0 - h / 2)
+        worst = max(worst, d / max(w, h))
+        check(d < max(w, h) * 0.5, f"second face took the track at {t}")
+    log(f"[tracked] cutaway frames {list(TRACK_GAP)} invalid with frame "
+        f"{TRACK_GAP[0] - 1}'s box; the second face never takes the track "
+        f"(worst centre distance {worst:.3f} of the face size, limit 0.5)")
+
+    # kernel 1 at the face-crop shape (the tracked path's own inputs)
+    from lipreading_tpu_torch.ops.roi import grayscale
+
+    with torch.inference_mode():
+        gray = grayscale(torch.as_tensor(frames, device="cuda").reshape(
+            B * T, H, W, 3))
+        ibox = round_face_boxes(card["face_boxes"].reshape(B * T, 3), H, W)
+    pc = gpu["cfg"].preprocess
+    kw = dict(mean=pc.normalize_mean, std=pc.normalize_std, normalize=False)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    floor = launch_floor_ms()
+    crop = roi_times("face crop", gray, ibox, CROP, kw, flush, floor)
+    del flush
+    row = next(r for r in rows if r["name"] == "roi_sampler")
+    row["crop"] = dict(N=B * T, R=CROP, normalize=0, ms=crop["ms_raw"],
+                       ms_normalize1=crop["ms"], max_abs_err=crop["err"],
+                       plain_ms=crop["plain_ms"],
+                       library_ms=crop["library_ms"],
+                       bound_ms=crop["bound_ms"], bound_by=crop["bound_by"],
+                       wrapper_ms=crop["wrapper_ms"], launches_per_call=2)
+    row["max_abs_err"] = max(row["max_abs_err"], crop["err"])
+
+    # the stages' host ms (synchronised after each), the tracking loop's
+    # launches, and one cascade call's greedy launch
+    clock = StageClock(gpu["device"])
+    tracked_run(gpu, frames, mark=clock.mark)
+    log("[tracked] stages (host clock, synchronised): " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in clock.ms.items()))
+    cand = card["face_boxes"][:, :, None].expand(B, T, 4, 3).contiguous()
+    conf = torch.rand((B, T, 4), device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(0))
+    with torch.inference_mode():
+        pr = beam_profile(lambda: (track_boxes(cand, conf, 0.5), 0)[1])
+    log(f"[tracked] track_boxes over {T} frames: {pr['ops']} device ops "
+        f"({pr['ops'] / T:.1f} a frame), host {pr['host_ms']:.2f} ms under "
+        f"the profiler, device busy {pr['device_ms']:.3f} ms")
+    reset((ctc_greedy_ids,))
+    with torch.inference_mode():
+        texts, flags = infer.transcribe_cascade(
+            gpu["model"], gpu["cfg"], card["rois"],
+            torch.as_tensor(lens, device="cuda"), return_flags=True,
+            **CASCADE_KW)
+    torch.cuda.synchronize()
+    check(ctc_greedy_ids.launches == 1,
+          f"cascade: {ctc_greedy_ids.launches} greedy launches, want 1")
+    log(f"[tracked] cascade on the tracked ROIs: 1 greedy launch, "
+        f"{int(flags.sum())} of {B} clips rescored; transcripts {texts}; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    return gpu, cpu
+
+
+def segmented_videos():
+    """[segmented]'s two videos: a cutaway (make_clip(5501), 40 faceless
+    frames, make_clip(5502)) and a hard cut (6601 and 6602 back to back)."""
+    import numpy as np
+
+    from lipreading_tpu_torch.fixtures import make_clip, render_faceless_frames
+
+    a, b = make_clip(5501), make_clip(5502)
+    c, d = make_clip(6601), make_clip(6602)
+    return {"cutaway": (np.concatenate(
+                [a.frames, render_faceless_frames(7, 40), b.frames]), False),
+            "hard cut": (np.concatenate([c.frames, d.frames]), True)}
+
+
+def phase_segmented(gpu, cpu):
+    """[segmented]: each video through preprocess_padded_tracked and
+    transcribe_segmented(cascade=True) (the hard cut with its frame
+    signatures) on the card and on the CPU: 2 segments each, spans and
+    transcripts equal."""
+    from lipreading_tpu_torch import infer
+    from lipreading_tpu_torch.ops.preprocess import preprocess_padded_tracked
+
+    t_phase = time.perf_counter()
+    for name, (frames, cut) in segmented_videos().items():
+        sig = infer.frame_signature(frames) if cut else None
+        out = {}
+        for srv in (gpu, cpu):
+            t0 = time.perf_counter()
+            rois, valid = preprocess_padded_tracked(
+                srv["det"], srv["presence"], srv["lmk"], frames,
+                srv["cfg"].preprocess)
+            text, segs = infer.transcribe_segmented(
+                srv["model"], srv["cfg"], rois, valid, cascade=True, sig=sig,
+                **CASCADE_KW)
+            out[srv["device"].type] = (text, segs, valid,
+                                       time.perf_counter() - t0)
+        text, segs, valid, dt = out["cuda"]
+        check(len(segs) == 2, f"{name}: {len(segs)} segments, want 2")
+        check((valid == out["cpu"][2]).all(), f"{name}: valid differs")
+        check(segs == out["cpu"][1],
+              f"{name}: card {segs} != CPU {out['cpu'][1]}")
+        log(f"[segmented] {name}, {len(frames)} frames ({int(valid.sum())} "
+            f"valid): {segs} -> {text!r}; card {dt * 1e3:.1f} ms, CPU "
+            f"{out['cpu'][3] * 1e3:.1f} ms; spans and transcripts equal")
+    log(f"[segmented] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def serve_shape_kernels(srv, fr, ln, rows) -> None:
+    """Kernels 1-2 at [serve]'s own shapes, on one steady batch (B clips x
+    bucket frames, N = B * bucket) against their plain versions: the ROI
+    kernel for the conv landmarker's face crop (R 64, integer boxes,
+    normalize=0) and for the sub-pixel mouth ROIs (R 96, float boxes), and
+    the greedy kernel on the batch's CTC log-probabilities; each timed
+    (``roi_times``, ``greedy_times``) and recorded on rows 1-2."""
+    import torch
+
+    from lipreading_tpu_torch import infer
+    from lipreading_tpu_torch.ops import decode, roi
+    from lipreading_tpu_torch.ops.landmarker import CROP, round_face_boxes
+    from lipreading_tpu_torch.ops.preprocess import (
+        mouth_boxes_float,
+        preprocess_clips_tracked,
+    )
+    from lipreading_tpu_torch.text import Vocab
+
+    B, T, H, W, _ = fr.shape
+    pc = srv["cfg"].preprocess
+    with torch.inference_mode():
+        rois, _, aux = preprocess_clips_tracked(
+            srv["det"], srv["presence"], srv["lmk"], fr, pc, return_aux=True)
+        gray = roi.grayscale(fr.reshape(B * T, H, W, 3))
+        ibox = round_face_boxes(aux["face_boxes"].reshape(B * T, 3), H, W)
+        mbox = mouth_boxes_float(aux["landmarks"], pc.roi_margin)
+        logp = infer.ctc_log_probs(srv["model"], srv["cfg"], rois,
+                                   ln).contiguous()
+    norm = dict(mean=pc.normalize_mean, std=pc.normalize_std)
+    floor = launch_floor_ms()
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    crop = roi_times("serve face crop", gray, ibox, CROP,
+                     dict(norm, normalize=False), flush, floor)
+    mouth = roi_times("serve mouth (subpixel)", gray, mbox, pc.roi_size,
+                      dict(norm, subpixel=True), flush, floor)
+    del flush
+
+    blank = Vocab().blank_id
+    ln32 = ln.to(torch.int32)
+    ids, cnt = decode.ctc_greedy_ids(logp, ln32, blank)
+    rids, rcnt = decode.ctc_greedy_ids_reference(logp, ln32, blank)
+    torch.cuda.synchronize()
+    bad = int((ids != rids).sum().item() + (cnt != rcnt).sum().item())
+    log(f"[greedy] serve B={B} T={T} V={logp.shape[-1]} (the batch's CTC "
+        f"log-probabilities): {bad} ids or counts differ from the plain "
+        "version")
+    check(bad == 0, "CTC greedy disagrees with its plain version at the "
+          "[serve] shape")
+    greedy = greedy_times("serve", logp, ln32, blank, floor)
+
+    keys = ("ms", "ms_raw", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "wrapper_ms")
+    row = next(r for r in rows if r["name"] == "roi_sampler")
+    row["serve"] = {
+        "crop": dict(N=B * T, R=CROP, normalize=0, max_abs_err=crop["err"],
+                     **{k: crop[k] for k in keys}),
+        "mouth": dict(N=B * T, R=pc.roi_size, subpixel=1,
+                      max_abs_err=mouth["err"],
+                      **{k: mouth[k] for k in keys})}
+    row["max_abs_err"] = max(row["max_abs_err"], crop["err"], mouth["err"])
+    row = next(r for r in rows if r["name"] == "ctc_greedy")
+    row["serve"] = dict(B=B, T=T, V=int(logp.shape[-1]), mismatches=bad,
+                        **{k: greedy[k] for k in ("ms", "wrapper_ms",
+                                                  "plain_ms", "composite_ms",
+                                                  "bound_ms", "bound_by")})
+    row["max_abs_err"] = max(row["max_abs_err"], float(bad))
+
+
+def phase_serve(gpu, cpu, rows):
+    """[serve]: the serving loop of ``python -m lipreading_tpu_torch.serve``
+    (render source, 64 clips, B 16, bucket 96, beam 8, LM 0.4, tracked,
+    conv landmarker) with the launch counts set to 0 just before and read
+    just after; its report and stage split; kernels 1-2 at its shapes
+    (``serve_shape_kernels``); a profile of one steady batch; the first
+    clips' transcripts against the CPU's; the ring closed."""
+    import multiprocessing as mp
+
+    import numpy as np
+    import torch
+
+    from lipreading_tpu_torch.data.pipeline import (
+        ShmVideoDecodePool,
+        _render_frames,
+    )
+    from lipreading_tpu_torch.ops.decode import ctc_greedy_ids
+    from lipreading_tpu_torch.ops.roi import sample_rois
+    from lipreading_tpu_torch.serve import iter_batches, serve, serve_batch
+
+    t_phase = time.perf_counter()
+    wrappers = {"roi_sampler": sample_rois, "ctc_greedy": ctc_greedy_ids}
+    others = set(mp.active_children())     # the long-clip renderers
+    reset(wrappers.values())
+    report = serve(device="cuda", log=log, **SERVE_KW)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    texts = report.pop("transcripts")
+    log(f"[serve] report {json.dumps(report)}")
+    log(f"[serve] launches {launches}")
+    for r in rows:
+        if r["name"] in launches:
+            r["serve_launches"] = launches[r["name"]]
+    check(all(v > 0 for v in launches.values()),
+          f"[serve] a kernel of the path never launched: {launches}")
+    check(len(texts) == SERVE_KW["n_clips"] and all(t is not None
+                                                   for t in texts),
+          "[serve] results missing")
+    check(0.0 <= report["rescored_frac"] <= 1.0,
+          f"rescored_frac {report['rescored_frac']}")
+    check(report["latency_p50_ms"] is not None, "no steady batch")
+    left = set(mp.active_children()) - others
+    check(not left, f"[serve] the ring left processes {left}")
+
+    # one steady batch (the first 16 clips, rendered by the ring) under the
+    # profiler, and the first clips on the CPU
+    B, bucket = SERVE_KW["B"], SERVE_KW["bucket"]
+    with ShmVideoDecodePool(workers=max(1, (os.cpu_count() or 2) - 1),
+                            slot_frames=bucket, frame_hw=(160, 160),
+                            work_fn=_render_frames) as pool:
+        frames, lens, _ = next(iter_batches(
+            pool.imap_jobs([(100 + i, bucket) for i in range(B)]), B, B,
+            bucket, (160, 160)))
+    fr, ln = torch.as_tensor(frames, device="cuda"), torch.as_tensor(
+        lens, device="cuda")
+    serve_shape_kernels(gpu, fr, ln, rows)
+    kw = {k: SERVE_KW[k] for k in ("beam", "lm_weight")}
+    with torch.inference_mode():
+        pr = beam_profile(lambda: (serve_batch(gpu, fr, ln, **kw), 0)[1])
+    idle = 1 - pr["device_ms"] / pr["host_ms"]
+    log(f"[serve] profile of one steady batch ({B} clips): host "
+        f"{pr['host_ms']:.1f} ms under the profiler, device busy "
+        f"{pr['device_ms']:.2f} ms (idle {100 * idle:.1f} %), "
+        f"{pr['ops']} device ops, {pr['sync_ms']:.2f} ms in reads of device "
+        "values")
+    check(pr["device_ms"] > 0, "the profile saw no device time")
+    n = SERVE_CPU_CLIPS
+    t0 = time.perf_counter()
+    cpu_texts, _, _ = serve_batch(cpu, torch.as_tensor(frames[:n]),
+                                  torch.as_tensor(lens[:n]), **kw)
+    log(f"[serve] first {n} clips on the CPU ({time.perf_counter() - t0:.1f}"
+        f" s): {'equal' if cpu_texts == texts[:n] else 'DIFFER'}")
+    check(cpu_texts == texts[:n],
+          f"[serve] card {texts[:n]} != CPU {cpu_texts}")
+    log(f"[serve] phase {time.perf_counter() - t_phase:.1f} s")
+    return report, idle
+
+
 def long_batch(long, cfg):
     """The long clips as one training batch at LONG_BUCKET frames."""
     from lipreading_tpu_torch.data.pipeline import FixtureVideoDataset
@@ -2348,6 +2751,10 @@ def main() -> int:
         flash = phase_path_flash(frames, lengths, gpu, long)
         phase_cascade(frames, lengths, gpu, flash)
         del flash
+        gpu_t, cpu_t = phase_tracked(frames, lengths, rows)
+        phase_segmented(gpu_t, cpu_t)
+        phase_serve(gpu_t, cpu_t, rows)
+        del gpu_t, cpu_t
         phase_train(gpu, rows)
         phase_train_flash(gpu, long, rows)
         phase_train_parity(gpu)

@@ -1,21 +1,32 @@
-"""Raw-frame batches for fused-preprocessing training (counterpart of
-``VideoBatch``, ``FixtureVideoDataset``, ``VideoBatchIterator`` and
-``video_batch_to_device`` in ``lipreading_tpu/data/pipeline.py``).
+"""Raw-frame batches and the serving loop's input ring (counterpart of
+``VideoBatch``, ``FixtureVideoDataset``, ``VideoBatchIterator``,
+``ShmVideoDecodePool`` and ``Prefetcher`` in
+``lipreading_tpu/data/pipeline.py``).
 
-The host renders fixture clips, cuts them into per-word cue samples, and
-pads batches of uint8 frames into time buckets; detection, landmarks and
-ROIs run on the device inside the train step (``train/loop.FusedTrainer``).
-The same seeds give the same batches, in the same order, as the JAX package.
-The video-file decode pool and the prefetcher belong to the serving loop, a
-later slice.
+* Training: the host renders fixture clips, cuts them into per-word cue
+  samples, and pads batches of uint8 frames into time buckets; detection,
+  landmarks and ROIs run on the device inside the train step
+  (``train/loop.FusedTrainer``). The same seeds give the same batches, in
+  the same order, as the JAX package. ``video_batch_to_device`` copies them
+  to the device.
+* Serving: ``ShmVideoDecodePool`` decodes (or renders) clips in worker
+  processes into shared-memory slots, and ``PinnedPrefetcher`` stages the
+  padded batches in page-locked memory and copies them to the card on a
+  side stream, so that the next batch's copy overlaps this one's work.
+
+This module imports torch only inside the functions that use it: the
+ring's spawned workers import it and nothing of torch.
 """
 
 from __future__ import annotations
 
+import os
+import queue
+import threading
+import time
 from dataclasses import dataclass
 
 import numpy as np
-import torch
 
 from lipreading_tpu_torch.config import DataConfig
 from lipreading_tpu_torch.text import Vocab
@@ -146,10 +157,11 @@ class VideoBatchIterator:
         return self.ds.batch(idx, bucket)
 
 
-def video_batch_to_device(batch: VideoBatch,
-                          device: str | torch.device) -> dict:
+def video_batch_to_device(batch: VideoBatch, device) -> dict:
     """VideoBatch -> dict of tensors on ``device`` (frames stay uint8; the
     train step preprocesses them there)."""
+    import torch
+
     def put(x):
         return torch.as_tensor(x).to(device)
 
@@ -161,3 +173,341 @@ def video_batch_to_device(batch: VideoBatch,
         "ctc_labels": put(batch.ctc_labels),
         "ctc_lengths": put(batch.ctc_lengths),
     }
+
+
+# --- the serving loop's input: a shared-memory decode ring and a pinned
+# prefetcher
+
+RING_TIMEOUT = 300.0    # s the consumer waits for one result before it raises
+POLL = 0.5              # s between the checks of a blocked wait
+PREFETCH_DEPTH = 2      # batches staged on the device ahead of their use
+
+
+def _decode_frames(payload):
+    """Ring work function: (video path, max_frames) -> [T, H, W, 3] uint8."""
+    from lipreading_tpu_torch.data.video import decode_video
+
+    path, max_frames = payload
+    return decode_video(path, max_frames=max_frames)[0]
+
+
+def _render_frames(payload):
+    """Ring work function: (seed, max_frames) -> the first frames of
+    ``fixtures.make_clip(seed)``, rendered in the worker (no codec)."""
+    from lipreading_tpu_torch.fixtures import make_clip
+
+    seed, max_frames = payload
+    return make_clip(seed).frames[:max_frames]
+
+
+def _take(q, stop):
+    """The next item of ``q``, or None once ``stop`` is set."""
+    while not stop.is_set():
+        try:
+            return q.get(timeout=POLL)
+        except queue.Empty:
+            continue
+    return None
+
+
+def _shm_worker(jobs, results, free, stop, shm_names, slot_bytes, work_fn):
+    """Ring worker: run ``work_fn(payload)`` for each (seq, payload) job,
+    write the frames into a free shared-memory slot and send (seq, slot,
+    shape, None), or (seq, -1, None, error) if the work raised. It ends at a
+    None job or when ``stop`` is set; every wait polls ``stop``."""
+    from multiprocessing import shared_memory
+
+    # spawned workers share the parent's resource tracker: attaching here
+    # registers names the parent already owns and unlinks at close
+    shms = [shared_memory.SharedMemory(name=n) for n in shm_names]
+    try:
+        while True:
+            job = _take(jobs, stop)
+            if job is None:
+                return
+            seq, payload = job
+            try:
+                frames = np.ascontiguousarray(work_fn(payload), np.uint8)
+                if frames.nbytes > slot_bytes:
+                    raise ValueError(
+                        f"a clip of {frames.nbytes} B exceeds the ring slot "
+                        f"({slot_bytes} B); pass max_frames or grow "
+                        "slot_frames")
+            except Exception as e:  # sent to the parent, which raises
+                results.put((seq, -1, None, f"{type(e).__name__}: {e}"),
+                            timeout=RING_TIMEOUT)
+                continue
+            slot = _take(free, stop)
+            if slot is None:
+                return
+            np.ndarray(frames.shape, np.uint8,
+                       buffer=shms[slot].buf)[:] = frames
+            results.put((seq, slot, frames.shape, None), timeout=RING_TIMEOUT)
+    finally:
+        for s in shms:
+            s.close()
+
+
+class ShmVideoDecodePool:
+    """Decode ring: ``workers`` spawned processes run ``work_fn`` on the
+    jobs (decode a video, or render a fixture clip) and write the frames
+    into ``slots`` shared-memory slots; only (seq, slot, shape) rides the
+    pipe. ``imap_jobs`` yields the clips in input order.
+
+    The JAX package's ring can deadlock: results that arrive before their
+    turn keep their slots while the consumer waits for the one it wants,
+    and the worker of that one then waits for a free slot forever. Here the
+    consumer copies every result out of its slot as soon as it arrives and
+    hands the slot back, so a held result holds no slot, and at most
+    ``slots + workers`` jobs are in flight past the one it waits for. Every
+    wait has a timeout: a result that does not come within ``timeout``
+    seconds, a worker that dies, or a work function that raises, raises in
+    the parent with the workers' state.
+
+    Usage::
+
+        with ShmVideoDecodePool(workers=4, slot_frames=96) as pool:
+            for frames in pool.imap_jobs([(p, 96) for p in paths]):
+                ...
+    """
+
+    def __init__(self, workers: int | None = None, slot_frames: int = 256,
+                 frame_hw: tuple[int, int] = (160, 160),
+                 slots: int | None = None, work_fn=_decode_frames,
+                 timeout: float = RING_TIMEOUT):
+        import multiprocessing as mp
+        from multiprocessing import shared_memory
+
+        self.workers = workers or max(1, (os.cpu_count() or 1) - 1)
+        self.slot_bytes = slot_frames * frame_hw[0] * frame_hw[1] * 3
+        self.slots = slots if slots is not None else self.workers + 2
+        self.timeout = timeout
+        ctx = mp.get_context("spawn")
+        self._shm = [shared_memory.SharedMemory(create=True,
+                                                size=self.slot_bytes)
+                     for _ in range(self.slots)]
+        self._jobs = ctx.Queue()
+        self._results = ctx.Queue()
+        self._free = ctx.Queue()
+        self._stop = ctx.Event()
+        self._stopped = threading.Event()
+        for i in range(self.slots):
+            self._free.put(i, timeout=timeout)
+        names = [s.name for s in self._shm]
+        self._procs = [
+            ctx.Process(target=_shm_worker,
+                        args=(self._jobs, self._results, self._free,
+                              self._stop, names, self.slot_bytes, work_fn),
+                        daemon=True)
+            for _ in range(self.workers)]
+        for p in self._procs:
+            p.start()
+        self._closed = False
+
+    def imap_jobs(self, payloads):
+        """Yield ``work_fn(payload)`` for each payload, in input order."""
+        payloads = list(payloads)
+        window = self.slots + self.workers
+
+        def drain():
+            held: dict[int, np.ndarray] = {}
+            sent = 0
+            for want in range(len(payloads)):
+                while sent < len(payloads) and sent < want + window:
+                    self._jobs.put((sent, payloads[sent]),
+                                   timeout=self.timeout)
+                    sent += 1
+                deadline = time.monotonic() + self.timeout
+                while want not in held:
+                    seq, slot, shape, err = self._result(deadline, want, held)
+                    if err is not None:
+                        raise RuntimeError(f"ring job {seq} "
+                                           f"({payloads[seq]!r}) failed: "
+                                           f"{err}")
+                    # copy out at once and hand the slot back, whether or
+                    # not it is this result's turn
+                    held[seq] = np.ndarray(shape, np.uint8,
+                                           buffer=self._shm[slot].buf).copy()
+                    self._free.put(slot, timeout=self.timeout)
+                yield held.pop(want)
+
+        return drain()
+
+    def _result(self, deadline: float, want: int, held: dict):
+        while True:
+            if self._stopped.is_set():
+                raise RuntimeError("the ring was stopped")
+            try:
+                return self._results.get(timeout=POLL)
+            except queue.Empty:
+                pass
+            dead = [p for p in self._procs if p.exitcode is not None]
+            if dead:
+                raise RuntimeError(
+                    "a ring worker died: " + self.state(want, held))
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"no ring result in {self.timeout:g} s: "
+                    + self.state(want, held))
+
+    def state(self, want: int | None = None, held=()) -> str:
+        """The workers (pid, alive, exit code) and the consumer's position."""
+        procs = ", ".join(f"pid {p.pid} alive={p.is_alive()} "
+                          f"exitcode={p.exitcode}" for p in self._procs)
+        return (f"workers [{procs}]; waiting for job {want}; holding "
+                f"{sorted(held)}; {self.slots} slots")
+
+    def stop(self):
+        """Make a consumer that waits for a result raise within ``POLL``
+        seconds (``close`` stops the workers too)."""
+        self._stopped.set()
+
+    def close(self):
+        if self._closed:
+            return
+        self._closed = True
+        self.stop()
+        self._stop.set()
+        for q in (self._results, self._free, self._jobs):
+            try:                       # drain what the workers wrote
+                while True:
+                    q.get_nowait()
+            except queue.Empty:
+                pass
+        for p in self._procs:
+            p.join(timeout=5 * POLL + 5)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=5)
+        for q in (self._results, self._free, self._jobs):
+            q.cancel_join_thread()
+            q.close()
+        for s in self._shm:
+            s.close()
+            s.unlink()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class PinnedPrefetcher:
+    """Stages host batches on ``device`` ahead of their use (the counterpart
+    of the JAX package's ``Prefetcher``).
+
+    ``iterator`` yields tuples whose first two items are numpy arrays
+    (frames, lengths). On a CUDA device a background thread copies each
+    batch into one of ``PREFETCH_DEPTH + 1`` page-locked host buffers and issues
+    ``non_blocking`` copies to the card on a side stream, recording an
+    event; ``next`` makes the caller's stream wait on that event and yields
+    ((frames, lengths) on the device, (copy start, copy end) events, the
+    host tuple). A buffer is refilled only after its last copy finished.
+    On the CPU (only tests ask for it) the arrays are copied plainly and
+    nothing is pinned; the events are None. Every queue wait polls: an
+    error in the thread raises at ``next``, and a batch that does not come
+    within ``timeout`` seconds raises."""
+
+    _DONE = object()
+
+    def __init__(self, iterator, device, timeout: float = RING_TIMEOUT):
+        import torch
+
+        self.device = torch.device(device)
+        self.timeout = timeout
+        self.q: queue.Queue = queue.Queue(maxsize=PREFETCH_DEPTH)
+        self._stop = threading.Event()
+        self._cuda = self.device.type == "cuda"
+        if self._cuda:
+            self.stream = torch.cuda.Stream(self.device)
+            self._pinned = [None] * (PREFETCH_DEPTH + 1)
+            self._done = [None] * (PREFETCH_DEPTH + 1)
+        self.thread = threading.Thread(target=self._fill, args=(iterator,),
+                                       daemon=True)
+        self.thread.start()
+
+    def _stage(self, k: int, frames: np.ndarray, lens: np.ndarray):
+        import torch
+
+        if not self._cuda:
+            return (torch.from_numpy(np.array(frames)),
+                    torch.from_numpy(np.array(lens))), (None, None)
+        slot = k % len(self._pinned)
+        if self._done[slot] is not None:
+            self._done[slot].synchronize()     # its last copy has landed
+        buf = self._pinned[slot]
+        if buf is None or tuple(buf.shape) != frames.shape:
+            buf = torch.empty(frames.shape, dtype=torch.uint8,
+                              pin_memory=True)
+            self._pinned[slot] = buf
+        buf.numpy()[...] = frames
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(self.stream):
+            start.record(self.stream)
+            dev = buf.to(self.device, non_blocking=True)
+            dlens = torch.from_numpy(np.array(lens)).to(self.device,
+                                                        non_blocking=True)
+            end.record(self.stream)
+        self._done[slot] = end
+        return (dev, dlens), (start, end)
+
+    def _put(self, item) -> None:
+        while not self._stop.is_set():
+            try:
+                self.q.put(item, timeout=POLL)
+                return
+            except queue.Full:
+                continue
+
+    def _fill(self, iterator):
+        try:
+            for k, item in enumerate(iterator):
+                if self._stop.is_set():
+                    return
+                self._put((*self._stage(k, item[0], item[1]), item))
+            self._put(self._DONE)
+        except Exception as e:  # raised again at the consumer's next()
+            self._put(e)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        import torch
+
+        deadline = time.monotonic() + self.timeout
+        while True:
+            try:
+                item = self.q.get(timeout=POLL)
+                break
+            except queue.Empty:
+                if not self.thread.is_alive() and self.q.empty():
+                    raise RuntimeError("the prefetch thread ended without "
+                                       "a batch or an error")
+                if time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"no batch from the prefetch thread in "
+                        f"{self.timeout:g} s")
+        if item is self._DONE:
+            raise StopIteration
+        if isinstance(item, Exception):
+            raise item
+        (dev, dlens), events, host = item
+        if self._cuda:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(events[1])
+            dev.record_stream(cur)
+            dlens.record_stream(cur)
+        return (dev, dlens), events, host
+
+    def close(self, timeout: float = 10.0) -> None:
+        """Stop the thread and wait for it (at most ``timeout`` seconds)."""
+        self._stop.set()
+        try:
+            while True:
+                self.q.get_nowait()
+        except queue.Empty:
+            pass
+        self.thread.join(timeout=timeout)

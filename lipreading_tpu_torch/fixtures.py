@@ -1,7 +1,8 @@
 """Deterministic synthetic talking-face fixtures.
 
 A numpy copy of the renderer in ``lipreading_tpu/fixtures.py`` (``make_clip``,
-``make_clips``): the same seed gives the same frames, landmarks and text
+``make_clips``, and the robustness helpers ``render_faceless_frames``,
+``blank_out_frames`` and ``paste_second_face``): the same seed gives the same frames, landmarks and text
 byte for byte, and the same WebVTT caption track (one cue per word, which
 ``data/pipeline.FixtureVideoDataset`` cuts into samples), so clips with known
 transcripts reach the port without the JAX package.
@@ -226,6 +227,15 @@ def sample_text(rng: np.random.Generator, min_words=2, max_words=4) -> str:
     return " ".join(LEXICON[int(i)] for i in rng.integers(0, len(LEXICON), n))
 
 
+def _clip_rng_and_text(seed: int, text: str | None = None):
+    """``make_clip(seed)``'s generator and normalised text: the text, unless
+    given, is the generator's first draw."""
+    rng = np.random.default_rng(np.random.SeedSequence([0xFACE, seed]))
+    if text is None:
+        text = sample_text(rng)
+    return rng, normalize_text(text)
+
+
 def make_clip(seed: int, cfg: DataConfig | None = None, text: str | None = None,
               variation: float = 0.0) -> Clip:
     """Render one deterministic clip. Same (seed, cfg, text, variation) ->
@@ -238,11 +248,8 @@ def make_clip(seed: int, cfg: DataConfig | None = None, text: str | None = None,
     corpora can opt in.
     """
     cfg = cfg or DataConfig()
-    rng = np.random.default_rng(np.random.SeedSequence([0xFACE, seed]))
+    rng, text = _clip_rng_and_text(seed, text)
     style = _sample_style(seed, variation)
-    if text is None:
-        text = sample_text(rng)
-    text = normalize_text(text)
     H, W = cfg.frame_height, cfg.frame_width
 
     o_curve, w_curve = _mouth_curves(text, cfg.frames_per_char)
@@ -294,3 +301,73 @@ def make_clips(seed: int, n: int, cfg: DataConfig | None = None,
                variation: float = 0.0) -> list[Clip]:
     return [make_clip(seed * 10_000 + i, cfg, variation=variation)
             for i in range(n)]
+
+
+def clip_text(seed: int) -> str:
+    """``make_clip(seed).text`` without rendering."""
+    return _clip_rng_and_text(seed)[1]
+
+
+# --- robustness fixtures (copies of the JAX package's helpers): frames
+# where the detector finds no face or two faces, for the tracking tests
+
+
+def render_faceless_frames(seed: int, n: int, cfg: DataConfig | None = None,
+                           variation: float = 0.0) -> np.ndarray:
+    """[n, H, W, 3] u8 background-only frames (the renderer's background and
+    noise, no face): what a cutaway or slate frame looks like."""
+    cfg = cfg or DataConfig()
+    rng = np.random.default_rng(np.random.SeedSequence([0x0FF, seed]))
+    style = _sample_style(seed, variation)
+    H, W = cfg.frame_height, cfg.frame_width
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+    c0 = rng.uniform(60, 110, size=3) + style["bg_shift"]
+    c1 = rng.uniform(90, 150, size=3) + style["bg_shift"]
+    bg = c0[None, None, :] + (c1 - c0)[None, None, :] * (yy / H)[..., None]
+    out = np.empty((n, H, W, 3), np.uint8)
+    for t in range(n):
+        noise = rng.normal(0.0, style["noise_sigma"], size=(H, W, 1))
+        out[t] = np.clip(bg + noise, 0, 255).astype(np.uint8)
+    return out
+
+
+def blank_out_frames(clip: Clip, idxs, seed: int = 0) -> np.ndarray:
+    """Copy of ``clip.frames`` with the frames ``idxs`` replaced by faceless
+    background frames (a cutaway)."""
+    frames = clip.frames.copy()
+    idxs = list(idxs)
+    bg = render_faceless_frames(seed, len(idxs),
+                                DataConfig(frame_height=frames.shape[1],
+                                           frame_width=frames.shape[2]))
+    for k, t in enumerate(idxs):
+        frames[t] = bg[k]
+    return frames
+
+
+def paste_second_face(clip: Clip, donor_seed: int = 777,
+                      scale: float = 0.6) -> np.ndarray:
+    """Copy of ``clip.frames`` with a second, smaller face composited into
+    the corner farthest from the true face (two detections a frame)."""
+    frames = clip.frames.copy()
+    T, H, W, _ = frames.shape
+    donor = make_clip(donor_seed)
+    for t in range(T):
+        d = donor.frames[min(t, donor.frames.shape[0] - 1)]
+        x0, y0, bw, bh = donor.boxes[min(t, donor.boxes.shape[0] - 1)]
+        pad = 0.25
+        x0 = max(int(x0 - pad * bw), 0)
+        y0 = max(int(y0 - pad * bh), 0)
+        x1 = min(int(x0 + (1 + 2 * pad) * bw), d.shape[1])
+        y1 = min(int(y0 + (1 + 2 * pad) * bh), d.shape[0])
+        patch = d[y0:y1, x0:x1]
+        ph = max(int(patch.shape[0] * scale), 8)
+        pw = max(int(patch.shape[1] * scale), 8)
+        ys = (np.arange(ph) * patch.shape[0] / ph).astype(np.int32)
+        xs = (np.arange(pw) * patch.shape[1] / pw).astype(np.int32)
+        small = patch[ys[:, None], xs[None, :]]
+        # the corner farthest from the true face box
+        fx, fy = clip.boxes[t][0], clip.boxes[t][1]
+        cy = 0 if fy > H / 2 else H - ph
+        cx = 0 if fx > W / 2 else W - pw
+        frames[t, cy:cy + ph, cx:cx + pw] = small
+    return frames

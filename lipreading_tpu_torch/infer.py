@@ -15,6 +15,11 @@
 * ``transcribe_cascade`` runs the greedy leg on every clip and the joint
   beam only on the clips its triggers flag, from the greedy leg's encoder
   output.
+* ``transcribe_segmented`` decodes one tracked video by shot: it splits the
+  frames at long runs of invalid (no-face) frames and, given the frames'
+  signatures (``frame_signature``), at hard cuts (``signature_cuts``), and
+  decodes the segments as one batch (numpy helpers ``segment_valid_runs``
+  and the two above, copied from the JAX package).
 
 Every entry runs on the device of the model; the char LM
 (``assets/char_lm.npz``) and the lexicon tables are loaded once per device.
@@ -217,7 +222,7 @@ def transcribe_cascade(model: LipReader, cfg: Config, rois, frame_lengths,
                        margin: float = 8.0, lm_margin: float = 1.35,
                        lm_min_chars: int = 4, oov_trigger: bool = True,
                        oov_words=None, rescore_bucket: int = 8,
-                       return_flags: bool = False):
+                       return_flags: bool = False, mark=None, rows=None):
     """Cascade decoding: CTC greedy on every clip, then the joint beam (with
     the LM and lexicon as asked) only on the uncertain clips, decoded from
     the greedy leg's encoder output. Confident clips keep the greedy
@@ -237,7 +242,13 @@ def transcribe_cascade(model: LipReader, cfg: Config, rois, frame_lengths,
     (transcripts, n_rescored), or (transcripts, flags [B] bool numpy) with
     ``return_flags``. At ``margin=inf`` every clip is rescored (==
     ``transcribe``); with every trigger off (margin=0, lm_margin=inf,
-    oov_trigger=False) none is (== greedy)."""
+    oov_trigger=False) none is (== greedy). ``mark(stage)``, if given, is
+    called after the greedy leg ("greedy") and after the rescore leg
+    ("rescore"). ``rows`` ([B] bool, default every row) limits the rescore
+    leg to those clips: the others keep their greedy transcript and are
+    never flagged (the serving loop decodes them by shot, and the greedy
+    leg keeps the batch's shape)."""
+    mark = mark or (lambda stage: None)
     vocab = vocab or Vocab()
     beam = cfg.train.beam_width if beam is None else beam
     rois, frame_lengths = _on_device(model, rois, frame_lengths)
@@ -256,7 +267,10 @@ def transcribe_cascade(model: LipReader, cfg: Config, rois, frame_lengths,
             oov_words = set(LEXICON)
         uncertain |= np.asarray(
             [any(w not in oov_words for w in t.split()) for t in out])
+    if rows is not None:
+        uncertain &= np.asarray(rows, bool)
     idx = np.nonzero(uncertain)[0]
+    mark("greedy")
     if beam > 1 and idx.size:
         n = idx.size
         take = torch.from_numpy(np.concatenate(
@@ -268,6 +282,7 @@ def transcribe_cascade(model: LipReader, cfg: Config, rois, frame_lengths,
         sub = _texts(sids, slens, vocab)
         for k, b in enumerate(idx):
             out[int(b)] = sub[k]
+    mark("rescore")
     if return_flags:
         return out, uncertain
     return out, int(idx.size)
@@ -314,3 +329,119 @@ def transcribe_greedy(model: LipReader, cfg: Config, det_params, ert_model,
     ids, counts = ids.cpu().numpy(), counts.cpu().numpy()
     texts = [vocab.decode(ids[b, :counts[b]]) for b in range(B)]
     return texts, (conf < margin).cpu().numpy()
+
+
+def frame_signature(frames, grid: int = 16) -> np.ndarray:
+    """[N, H, W, 3] uint8 -> [N, grid, grid] block-mean gray in [0, 1]: the
+    shot-boundary signal. Background and framing are static within a shot,
+    so the consecutive-frame difference of the full-frame signature jumps
+    at a hard cut, where the mouth ROI alone cannot tell a cut from
+    talking motion."""
+    f = np.asarray(frames)
+    g = f.astype(np.float32).mean(-1) if f.ndim == 4 else f.astype(np.float32)
+    N, H, W = g.shape
+    H2, W2 = H - H % grid, W - W % grid
+    s = g[:, :H2, :W2].reshape(
+        N, grid, H2 // grid, grid, W2 // grid).mean((2, 4))
+    return s / 255.0
+
+
+def signature_cuts(sig: np.ndarray, cut_k: float = 8.0,
+                   cut_min: float = 0.02) -> np.ndarray:
+    """Hard-cut frame indices of a [N, g, g] signature sequence: a cut at i
+    means frames i - 1 and i straddle a shot boundary. The threshold is
+    ``cut_k`` times the sequence's median consecutive-frame difference,
+    and at least ``cut_min``, so a near-static stream cannot fire on
+    noise."""
+    sig = np.asarray(sig)
+    if sig.shape[0] < 2:
+        return np.zeros((0,), np.int64)
+    d = np.abs(np.diff(sig, axis=0)).mean(axis=(1, 2))
+    thr = max(cut_min, cut_k * float(np.median(d)))
+    return np.flatnonzero(d > thr) + 1
+
+
+def segment_valid_runs(valid, gap: int = 25) -> list[tuple[int, int]]:
+    """A frame-validity mask -> shot segments, ``[start, end)`` spans over
+    the frame axis: a run of at least ``gap`` invalid frames is a shot
+    boundary (a cutaway). Leading and trailing invalid frames are trimmed;
+    shorter invalid runs stay inside a span (the caller drops those
+    frames). ``gap <= 0``: one span over all valid frames."""
+    valid = np.asarray(valid).astype(bool)
+    idx = np.flatnonzero(valid)
+    if idx.size == 0:
+        return []
+    if gap <= 0:
+        return [(int(idx[0]), int(idx[-1]) + 1)]
+    segs = []
+    start = prev = int(idx[0])
+    for i in idx[1:]:
+        if int(i) - prev - 1 >= gap:
+            segs.append((start, prev + 1))
+            start = int(i)
+        prev = int(i)
+    segs.append((start, prev + 1))
+    return segs
+
+
+def transcribe_segmented(model: LipReader, cfg: Config, rois, valid,
+                         gap: int = 25, bucket: int = 64,
+                         cascade: bool = False, sig=None, cut_k: float = 8.0,
+                         cut_min: float = 0.02, **decode_kw):
+    """Tracked decode of one video by shot.
+
+    ``rois`` [N, R, R] (numpy, from
+    ``ops.preprocess.preprocess_padded_tracked``, or a tensor, which stays
+    on its device) and ``valid`` [N] (numpy) over the video's frame axis.
+    The video splits at runs of at least ``gap`` invalid frames and, with
+    ``sig`` (``frame_signature`` of the same frames), at hard cuts.
+    Each segment keeps its valid frames; the segments are padded to a
+    multiple of ``bucket`` and decoded by ``transcribe``, or
+    ``transcribe_cascade`` with ``cascade``, one call a length bucket
+    (one shared bucket for ``framewise_norm`` models, whose frames do not
+    see the padding). Returns (the segments' texts joined by spaces,
+    [((start, end), text), ...])."""
+    valid = np.asarray(valid).astype(bool)
+    dev = next(model.parameters()).device
+    rois = (rois.to(dev) if isinstance(rois, torch.Tensor)
+            else torch.tensor(np.asarray(rois), device=dev))
+    segs = segment_valid_runs(valid, gap)
+    if sig is not None and segs:
+        cuts = signature_cuts(sig, cut_k, cut_min)
+        split = []
+        for lo, hi in segs:
+            for c in cuts[(cuts > lo) & (cuts < hi)]:
+                if valid[lo:c].any():
+                    split.append((lo, int(c)))
+                lo = int(c)
+            if valid[lo:hi].any():
+                split.append((lo, hi))
+        segs = split
+    if not segs:
+        return "", []
+    seg_rois = [rois[torch.from_numpy(lo + np.flatnonzero(valid[lo:hi]))
+                     .to(rois.device)] for lo, hi in segs]
+    lens = [int(r.shape[0]) for r in seg_rois]
+    # segments batch by length bucket: under the releases' time-pooled
+    # GroupNorm a short segment padded to a long one's bucket sees other
+    # features; framewise-norm models do not, and share one bucket
+    buckets: dict[int, list[int]] = {}
+    if cfg.model.framewise_norm:
+        buckets[-(-max(lens) // bucket) * bucket] = list(range(len(segs)))
+    else:
+        for i, L in enumerate(lens):
+            buckets.setdefault(-(-L // bucket) * bucket, []).append(i)
+    texts = [""] * len(segs)
+    for tb, idxs in sorted(buckets.items()):
+        batch = rois.new_zeros((len(idxs), tb) + tuple(rois.shape[1:]))
+        for k, i in enumerate(idxs):
+            batch[k, :lens[i]] = seg_rois[i]
+        blens = np.asarray([lens[i] for i in idxs], np.int32)
+        if cascade:
+            sub, _ = transcribe_cascade(model, cfg, batch, blens, **decode_kw)
+        else:
+            sub = transcribe(model, cfg, batch, blens, **decode_kw)
+        for k, i in enumerate(idxs):
+            texts[i] = sub[k]
+    text = " ".join(t for t in texts if t)
+    return text, list(zip(segs, texts))

@@ -7,7 +7,9 @@
 * ``msgpack_serialize``: its inverse, byte for byte what flax writes for the
   same tree (checkpoints, ``train/checkpoint.py``).
 * ``load_release``: a release checkpoint of ``assets/`` and its config.
-* ``load_assets``: the preprocessing weights (``detector.npz``, ``ert.npz``).
+* ``load_assets``: the preprocessing weights (``detector.npz``, ``ert.npz``);
+  ``load_landmarker`` and ``load_presence``: the conv landmarker's and the
+  face-presence head's (``landmarker_conv.npz``, ``presence.npz``).
 * ``from_jax_params``: a numpy parameter tree, from a release or from the JAX
   package's ``init_model``, turned into the ``state_dict`` of
   ``models.lipreader.LipReader``; ``to_jax_params`` is its inverse, the
@@ -261,6 +263,29 @@ def load_assets(assets_dir: str | None = None):
     det = load_params(os.path.join(d, "detector.npz"))
     ert = ERTModel.load(os.path.join(d, "ert.npz"))
     return det, ert
+
+
+def _load_npz(d: str, stem: str, variant: str):
+    sfx = "" if variant == "default" else f"_{variant}"
+    path = os.path.join(d, f"{stem}{sfx}.npz")
+    if not os.path.exists(path):
+        return None
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def load_landmarker(assets_dir: str | None = None, variant: str = "default"):
+    """The conv landmarker's weights (``landmarker_conv.npz``, or
+    ``landmarker_conv_<variant>.npz``) as a dict of numpy arrays, or None
+    where the file is missing."""
+    return _load_npz(assets_dir or ASSETS_DIR, "landmarker_conv", variant)
+
+
+def load_presence(assets_dir: str | None = None, variant: str = "default"):
+    """The face-presence head of a detector variant (``presence.npz``, or
+    ``presence_<variant>.npz``) as a dict of numpy arrays, or None where the
+    file is missing."""
+    return _load_npz(assets_dir or ASSETS_DIR, "presence", variant)
 
 
 def from_jax_params(tree, cfg: Config) -> "OrderedDict[str, torch.Tensor]":

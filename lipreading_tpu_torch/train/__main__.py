@@ -33,7 +33,7 @@ SLICE = {
              "data/dataview.py), a later slice of the port (ROADMAP queue 1 "
              "item 9)",
     "tracked": "the tracked fused step is a later slice of the port "
-               "(ROADMAP queue 1 item 6)",
+               "(ROADMAP queue 1 item 9, step 2)",
     "variation": "appearance-varied corpora and the robust assets are a "
                  "later slice of the port (ROADMAP queue 1 item 12)",
 }
@@ -68,8 +68,9 @@ def main(argv: list[str]) -> dict:
         cfg = cfg.override(**args)
     if cfg.preprocess.landmarker == "conv":
         raise NotImplementedError(
-            "preprocess.landmarker=conv: the conv landmarker is a later "
-            "slice of the port (ROADMAP queue 1 item 6)")
+            "preprocess.landmarker=conv: training with the conv landmarker "
+            "comes with the tracked fused step, a later slice of the port "
+            "(ROADMAP queue 1 item 9, step 2)")
     if cfg.train.remat:
         raise NotImplementedError(
             "train.remat=1: rematerialising the frontend is a later slice "

@@ -257,9 +257,9 @@ class FusedTrainer(Trainer):
                  device: str | torch.device = "cuda"):
         if cfg.preprocess.landmarker != "ert":
             raise NotImplementedError(
-                f"landmarker {cfg.preprocess.landmarker!r}: the conv "
-                "landmarker is a later slice of the port (ROADMAP queue 1 "
-                "item 6)")
+                f"landmarker {cfg.preprocess.landmarker!r}: training with "
+                "the conv landmarker comes with the tracked fused step, a "
+                "later slice of the port (ROADMAP queue 1 item 9, step 2)")
         super().__init__(cfg, workdir, device=device)
         self._det = det_params
         self._ert = ert_model

@@ -116,6 +116,24 @@ def test_cascade_endpoints_on_a_tiny_model():
                               for t in greedy]
 
 
+def test_cascade_rows_limit_the_rescore_leg_on_a_tiny_model():
+    """rows keeps the clips outside it out of the rescore leg: they keep
+    the greedy transcript and are not flagged, the others are rescored as
+    without it (margin=inf)."""
+    model, cfg, _, _, rois, lengths = _tiny("hybrid")
+    full = infer.transcribe(model, cfg, rois, lengths, beam=3)
+    ids, counts, _, _ = infer.greedy_conf(model, cfg, torch.from_numpy(rois),
+                                          torch.from_numpy(lengths))
+    greedy = [Vocab().decode(ids[b, :counts[b]].numpy())
+              for b in range(B)]
+    for rows in ([True, False], [False, True], [False, False]):
+        casc, flags = infer.transcribe_cascade(
+            model, cfg, rois, lengths, beam=3, margin=float("inf"),
+            return_flags=True, rows=np.asarray(rows))
+        assert flags.tolist() == rows
+        assert casc == [full[b] if rows[b] else greedy[b] for b in range(B)]
+
+
 @pytest.fixture(scope="module")
 def release():
     """The universal4 release in both packages, the three clips' frames

@@ -59,6 +59,61 @@ def test_roi_kernel_matches_plain(cuda, subpixel, n, R):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [960, 1536])
+def test_roi_kernel_at_the_face_crop_shape(cuda, n):
+    """The conv landmarker's crop: R 64, integer face boxes of 40-160 px,
+    normalize=0 (raw pixel values, tolerance 1e-4 as above)."""
+    rng = np.random.default_rng(n)
+    g = torch.from_numpy(rng.uniform(0, 255, (n, 160, 160)).astype(
+        np.float32)).to(cuda)
+    s = rng.integers(40, 161, n)
+    b = np.stack([rng.integers(0, 161 - s), rng.integers(0, 161 - s), s], 1)
+    b = torch.from_numpy(b.astype(np.int32)).to(cuda)
+    before = roi.sample_rois.launches
+    got = roi.sample_rois(g, b, 64, normalize=False)
+    assert roi.sample_rois.launches == before + 1
+    want = roi.sample_rois_reference(g, b, 64, normalize=False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_tracked_conv_preprocess_on_the_card_matches_the_cpu(cuda):
+    """Tracked preprocessing with the conv landmarker on the cutaway and
+    second-face clips: valid equal, face boxes within 1e-3 px, ROIs within
+    1e-4; two ROI launches a call."""
+    from lipreading_tpu_torch import io
+    from lipreading_tpu_torch.config import PreprocessConfig
+    from lipreading_tpu_torch.fixtures import (
+        blank_out_frames,
+        make_clip,
+        paste_second_face,
+    )
+    from lipreading_tpu_torch.ops import detector, landmarker, preprocess
+
+    frames = np.stack([blank_out_frames(make_clip(61), [4, 5, 6], seed=2)[:12],
+                       paste_second_face(make_clip(62), donor_seed=901)[:12]])
+    det_np, _ = io.load_assets()
+    cfg = PreprocessConfig(landmarker="conv")
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        before = roi.sample_rois.launches
+        out[dev.type] = preprocess.preprocess_clips_tracked(
+            detector.params_to_torch(det_np, dev),
+            detector.params_to_torch(io.load_presence(), dev),
+            landmarker.params_to_torch(io.load_landmarker(), dev),
+            torch.as_tensor(frames, device=dev), cfg, return_aux=True)
+        if dev.type == "cuda":
+            assert roi.sample_rois.launches == before + 2
+    (cr, cv, ca), (gr, gv, ga) = out["cpu"], out["cuda"]
+    assert torch.equal(gv.cpu(), cv)
+    assert cv[0].tolist() == [t not in (4, 5, 6) for t in range(12)]
+    torch.testing.assert_close(ga["face_boxes"].cpu(), ca["face_boxes"],
+                               rtol=0, atol=1e-3)
+    torch.testing.assert_close(gr.cpu(), cr, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,T,V", [(8, 96, 31), (3, 1, 31), (4, 16, 31),
                                    (2, 128, 31), (3, 1000, 31), (2, 300, 7)])
 def test_greedy_kernel_matches_plain(cuda, B, T, V):

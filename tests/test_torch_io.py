@@ -156,7 +156,11 @@ def test_port_imports_nothing_of_jax():
             "lipreading_tpu_torch/csrc/flash_attention.cu",
             "lipreading_tpu_torch/lm.py", "lipreading_tpu_torch/lexicon.py",
             "lipreading_tpu_torch/ops/ctc_beam.py",
-            "lipreading_tpu_torch/ops/joint_decode.py"} <= names
+            "lipreading_tpu_torch/ops/joint_decode.py",
+            "lipreading_tpu_torch/ops/tracking.py",
+            "lipreading_tpu_torch/ops/landmarker.py",
+            "lipreading_tpu_torch/data/video.py",
+            "lipreading_tpu_torch/serve.py"} <= names
     for path in srcs:
         with open(path) as f:
             text = f.read()
