@@ -116,6 +116,45 @@ preprocessing with the conv landmarker, the cascade) adds three phases:
   profile of that batch (device busy ms and idle share); the first 4
   clips' transcripts equal the CPU's.
 
+The rest of training (the dataview trainer, the tracked fused trainer,
+remat and the evaluation entry) adds five phases, on the release at full
+width and depth (batch 8, buckets 32-128):
+
+* ``[dataview]``: the training corpus's fixture dataview (12 clips) built
+  on the card untracked with the ERT and tracked with the conv landmarker
+  (faceless frames kept, masked): build seconds and ROI launches (1 a clip,
+  2 with the conv landmarker); the first 4 clips built on the CPU too: the
+  index and the masks equal, the stored bytes equal or, by 1, where the
+  value sits within the ROI limit of a rounding boundary; the held-out
+  view (4 clips of the training entry's held-out seed);
+* ``[train-dataview]``: ``Trainer`` from that view, warm-started:
+  ``batch_to_device``'s normalised ROIs card equal to CPU (PyTorch's own
+  scalar division, the planted fault, is not); the
+  held-out evaluation (joint beam 8) at step 0 card equal to CPU, then
+  ``fit`` with an evaluation at its last step: losses, one launch of each
+  CTC kernel a step and none of the ROI or greedy kernel, ``eval_cer``,
+  ``eval_wer`` and the eval ms, each stage's ms;
+* ``[train-tracked]``: ``FusedTrainer(tracked=True)`` with the conv
+  landmarker and the presence head on batches whose first sample is
+  faceless: 2 ROI launches and one of each CTC kernel a step, stage ms;
+  the faceless sample's weight 0 and the loss bit-identical across two
+  faceless backgrounds; kernel 1 at the step's face-crop and mouth shapes
+  (N 1024) against its plain version and timed; one dropout-off step card
+  against CPU within limits a planted fault (a length one short) breaks;
+  the tracked evaluation's transcripts card equal to CPU;
+* ``[remat]``: ``[train-flash]``'s long batch (4 x 1024, flash on,
+  ``flash_bwd=pallas``), one generator: the loss with ``train.remat`` equal
+  to the loss without, the gradient within limits that a recompute which
+  reseeds the generator breaks; peak memory and step ms both ways;
+* ``[evaluate]``: ``python -m lipreading_tpu_torch.evaluate`` in-process
+  on the JAX script's 6 held-out clips from the release,
+  ``decode=cascade`` and ``decode=ctc beam=1``: CER, launches (one ROI
+  launch a clip; one greedy launch for the cascade's batch, one a clip for
+  the CTC head) and the transcripts card equal to CPU.
+
+Each kernel row's ``launches_by_path`` holds its launches on each of these
+paths' runs.
+
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result. Float32 matrix products and cuDNN convolutions run in
 full float32 (TF32 off).
@@ -254,6 +293,24 @@ CASCADE_KW = {"beam": 8, "lm_weight": 0.4}
 # planted fault's (the card's frames shifted 1 px: 19.7, 7.9, 3.6)
 TRACK_GAP = (4, 5, 6)
 TRACK_LIMITS = {"face_boxes": 1e-3, "landmarks": 5e-4, "rois": 5e-4}
+# the rest of training: dataviews, the dataview and tracked trainers, remat
+DV_DIR = os.path.join(ROOT, "runs", "chip_smoke_dataview")
+DV_CPU_CLIPS = 4            # [dataview]'s first clips, also built on the CPU
+# [dataview] card vs CPU ROIs: the ERT build within the ROI kernel's limit,
+# the tracked conv build within [tracked]'s
+DV_ROI_TOL = {"ert": ROI_TOL, "conv": TRACK_LIMITS["rois"]}
+HELDOUT_SEED = 1 + 999_983  # the training entry's held-out clips
+HELDOUT_CLIPS = 4
+HELDOUT_SAMPLES = 8
+DV_STEPS = 4                # [train-dataview] fit steps, an eval at the last
+TRACKED_STEPS = 3
+TRACKED_EVAL_SAMPLES = 4
+REMAT_SEED, REMAT_FAULT_SEED = 7, 1234
+# [remat] gradient with remat against without, one generator; the planted
+# fault (the recompute reseeded) must break each
+REMAT_LIMITS = {"grad_rel": 1e-4, "grad_1_cos": 1e-6}
+EVAL_CLIPS = 6              # [evaluate]: scripts/evaluate.py's n_clips
+DEV = "cuda"                # the device of the training phases' runs
 # [serve]: scripts/serve.py's defaults, the fixture clips rendered in the
 # ring's workers
 SERVE_KW = dict(source="render", n_clips=64, B=16, bucket=96, beam=8,
@@ -2172,23 +2229,20 @@ def phase_segmented(gpu, cpu):
     log(f"[segmented] phase {time.perf_counter() - t_phase:.1f} s")
 
 
-def serve_shape_kernels(srv, fr, ln, rows) -> None:
-    """Kernels 1-2 at [serve]'s own shapes, on one steady batch (B clips x
-    bucket frames, N = B * bucket) against their plain versions: the ROI
-    kernel for the conv landmarker's face crop (R 64, integer boxes,
-    normalize=0) and for the sub-pixel mouth ROIs (R 96, float boxes), and
-    the greedy kernel on the batch's CTC log-probabilities; each timed
-    (``roi_times``, ``greedy_times``) and recorded on rows 1-2."""
+def tracked_roi_kernels(srv, fr, rows, tag: str):
+    """Kernel 1 at a tracked call's own shapes (B clips x T frames on the
+    device, N = B * T) against its plain version: the conv landmarker's face
+    crop (R 64, integer boxes, normalize=0) and the sub-pixel mouth ROIs
+    (R 96, float boxes); each timed (``roi_times``) and recorded on row 1
+    under ``tag`` -> the call's ROIs."""
     import torch
 
-    from lipreading_tpu_torch import infer
-    from lipreading_tpu_torch.ops import decode, roi
+    from lipreading_tpu_torch.ops import roi
     from lipreading_tpu_torch.ops.landmarker import CROP, round_face_boxes
     from lipreading_tpu_torch.ops.preprocess import (
         mouth_boxes_float,
         preprocess_clips_tracked,
     )
-    from lipreading_tpu_torch.text import Vocab
 
     B, T, H, W, _ = fr.shape
     pc = srv["cfg"].preprocess
@@ -2198,16 +2252,44 @@ def serve_shape_kernels(srv, fr, ln, rows) -> None:
         gray = roi.grayscale(fr.reshape(B * T, H, W, 3))
         ibox = round_face_boxes(aux["face_boxes"].reshape(B * T, 3), H, W)
         mbox = mouth_boxes_float(aux["landmarks"], pc.roi_margin)
-        logp = infer.ctc_log_probs(srv["model"], srv["cfg"], rois,
-                                   ln).contiguous()
     norm = dict(mean=pc.normalize_mean, std=pc.normalize_std)
     floor = launch_floor_ms()
     flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
-    crop = roi_times("serve face crop", gray, ibox, CROP,
+    crop = roi_times(f"{tag} face crop", gray, ibox, CROP,
                      dict(norm, normalize=False), flush, floor)
-    mouth = roi_times("serve mouth (subpixel)", gray, mbox, pc.roi_size,
+    mouth = roi_times(f"{tag} mouth (subpixel)", gray, mbox, pc.roi_size,
                       dict(norm, subpixel=True), flush, floor)
     del flush
+    keys = ("ms", "ms_raw", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "wrapper_ms")
+    row = next(r for r in rows if r["name"] == "roi_sampler")
+    row[tag] = {
+        "crop": dict(N=B * T, R=CROP, normalize=0, max_abs_err=crop["err"],
+                     **{k: crop[k] for k in keys}),
+        "mouth": dict(N=B * T, R=pc.roi_size, subpixel=1,
+                      max_abs_err=mouth["err"],
+                      **{k: mouth[k] for k in keys})}
+    row["max_abs_err"] = max(row["max_abs_err"], crop["err"], mouth["err"])
+    return rois
+
+
+def serve_shape_kernels(srv, fr, ln, rows) -> None:
+    """Kernels 1-2 at [serve]'s own shapes, on one steady batch (B clips x
+    bucket frames, N = B * bucket) against their plain versions: kernel 1 by
+    ``tracked_roi_kernels``, and the greedy kernel on the batch's CTC
+    log-probabilities, timed (``greedy_times``) and recorded on row 2."""
+    import torch
+
+    from lipreading_tpu_torch import infer
+    from lipreading_tpu_torch.ops import decode
+    from lipreading_tpu_torch.text import Vocab
+
+    B, T = fr.shape[:2]
+    rois = tracked_roi_kernels(srv, fr, rows, "serve")
+    with torch.inference_mode():
+        logp = infer.ctc_log_probs(srv["model"], srv["cfg"], rois,
+                                   ln).contiguous()
+    floor = launch_floor_ms()
 
     blank = Vocab().blank_id
     ln32 = ln.to(torch.int32)
@@ -2221,17 +2303,6 @@ def serve_shape_kernels(srv, fr, ln, rows) -> None:
     check(bad == 0, "CTC greedy disagrees with its plain version at the "
           "[serve] shape")
     greedy = greedy_times("serve", logp, ln32, blank, floor)
-
-    keys = ("ms", "ms_raw", "plain_ms", "library_ms", "bound_ms", "bound_by",
-            "wrapper_ms")
-    row = next(r for r in rows if r["name"] == "roi_sampler")
-    row["serve"] = {
-        "crop": dict(N=B * T, R=CROP, normalize=0, max_abs_err=crop["err"],
-                     **{k: crop[k] for k in keys}),
-        "mouth": dict(N=B * T, R=pc.roi_size, subpixel=1,
-                      max_abs_err=mouth["err"],
-                      **{k: mouth[k] for k in keys})}
-    row["max_abs_err"] = max(row["max_abs_err"], crop["err"], mouth["err"])
     row = next(r for r in rows if r["name"] == "ctc_greedy")
     row["serve"] = dict(B=B, T=T, V=int(logp.shape[-1]), mismatches=bad,
                         **{k: greedy[k] for k in ("ms", "wrapper_ms",
@@ -2495,12 +2566,16 @@ def release_train_cfg(**overrides):
     return tree, (cfg.override(**overrides) if overrides else cfg)
 
 
-def make_trainer(cfg, tree, dev, device, workdir):
+def make_trainer(cfg, tree, dev, device, workdir, tracked=False):
     """A FusedTrainer warm-started from ``tree``, or initialised from the
-    config's seed when ``tree`` is None."""
+    config's seed when ``tree`` is None; ``dev`` is ``load_port``'s (the
+    ERT) or ``load_server``'s (the conv landmarker and the presence head,
+    which ``tracked`` takes)."""
     from lipreading_tpu_torch.train.loop import FusedTrainer
 
-    tr = FusedTrainer(cfg, workdir, dev["det"], dev["ert"], device=device)
+    tr = FusedTrainer(cfg, workdir, dev["det"], dev.get("lmk", dev.get("ert")),
+                      device=device, presence=dev.get("presence"),
+                      tracked=tracked)
     tr.logger.echo = False
     if tree is not None:
         tr.warm_start(tree)
@@ -2648,6 +2723,27 @@ def parity_readings(a: dict, b: dict, lr: float) -> dict:
     }
 
 
+def step_record(cfg, batch, dev, device, name, tracked=False) -> dict:
+    """One step of a FusedTrainer from the config's seeded initialisation:
+    its loss, unclipped gradient norm, updated parameters and flat
+    gradient (on the host), and the seconds it took."""
+    import torch
+
+    t0 = time.perf_counter()
+    tr = make_trainer(cfg, None, dev, device, TRAIN_DIR + "_" + name,
+                      tracked=tracked)
+    m = tr.train_step(batch)
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "params": {k: p.detach().cpu() for k, p in
+                      tr.model.named_parameters()},
+           "grads": torch.cat([p.grad.detach().double().cpu().reshape(-1)
+                               for p in tr.model.parameters()]),
+           "s": time.perf_counter() - t0}
+    del tr
+    shutil.rmtree(TRAIN_DIR + "_" + name, ignore_errors=True)
+    return out
+
+
 def phase_train_parity(gpu):
     """One step without dropout or jitter on 2 clips, on the card and on the
     CPU (plain versions), from the same seeded initialisation (the release's
@@ -2656,8 +2752,6 @@ def phase_train_parity(gpu):
     catch, and the CPU in float32, which reads how far bf16 rounding alone
     moves the step (reported, not gated)."""
     import dataclasses
-
-    import torch
 
     from lipreading_tpu_torch.data.pipeline import FixtureVideoDataset
 
@@ -2671,24 +2765,12 @@ def phase_train_parity(gpu):
     short[-1] -= 1
     faulty = dataclasses.replace(batch, frame_lengths=short)
     cpu = load_port("cpu")
-    out = {}
-    for name, c, b, dev, device in (
-            ("card", cfg, batch, gpu, "cuda"),
-            ("card_fault", cfg, faulty, gpu, "cuda"),
-            ("cpu", cfg, batch, cpu, "cpu"),
-            ("cpu_f32", cfg32, batch, cpu, "cpu")):
-        t0 = time.perf_counter()
-        tr = make_trainer(c, None, dev, device, TRAIN_DIR + "_" + name)
-        m = tr.train_step(b)
-        out[name] = {
-            "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-            "params": {k: p.detach().cpu() for k, p in
-                       tr.model.named_parameters()},
-            "grads": torch.cat([p.grad.detach().double().cpu().reshape(-1)
-                                for p in tr.model.parameters()]),
-            "s": time.perf_counter() - t0}
-        del tr
-        shutil.rmtree(TRAIN_DIR + "_" + name, ignore_errors=True)
+    out = {name: step_record(c, b, dev, device, name)
+           for name, c, b, dev, device in (
+               ("card", cfg, batch, gpu, "cuda"),
+               ("card_fault", cfg, faulty, gpu, "cuda"),
+               ("cpu", cfg, batch, cpu, "cpu"),
+               ("cpu_f32", cfg32, batch, cpu, "cpu"))}
     lr = cfg.train.learning_rate
     read = {name: parity_readings(out[name], out["cpu"], lr)
             for name in ("card", "card_fault", "cpu_f32")}
@@ -2708,6 +2790,601 @@ def phase_train_parity(gpu):
         check(read["card_fault"][k] > lim,
               f"parity: the planted fault's {k} {read['card_fault'][k]} is "
               f"within the limit {lim}: the limit would pass a faulty step")
+
+
+# --- the rest of training: dataviews, the dataview trainer, the tracked
+# fused trainer, remat and the evaluation entry
+
+
+def path_launches(rows, path: str, counts: dict) -> None:
+    """Record the launches of each kernel row on one path's run."""
+    for r in rows:
+        if r["name"] in counts:
+            r.setdefault("launches_by_path", {})[path] = counts[r["name"]]
+
+
+def build_view(path, n_clips, seed, cfg, device, **kw):
+    """``build_fixture_dataview`` on ``device`` -> (view, each clip's float
+    ROIs as ``roi_to_u8`` got them, seconds)."""
+    from lipreading_tpu_torch.data import dataview as dv
+
+    seen = []
+    real = dv.roi_to_u8
+
+    def keep(r, c):
+        seen.append(r.copy())
+        return real(r, c)
+
+    shutil.rmtree(path, ignore_errors=True)
+    dv.roi_to_u8 = keep
+    try:
+        t0 = time.perf_counter()
+        view = dv.build_fixture_dataview(path, n_clips, seed=seed,
+                                         data_cfg=cfg.data,
+                                         pre_cfg=cfg.preprocess,
+                                         device=device, **kw)
+        if device == DEV:
+            import torch
+
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        dv.roi_to_u8 = real
+    return view, seen, secs
+
+
+def byte_rule(card, cpu, tol: float, pre) -> dict:
+    """The stored bytes of one build against another's: the float ROIs'
+    max |diff|, the bytes that differ, and those of them whose value does
+    not sit within ``tol`` x std x 255 (+ 2 float32 ulps of 255) of a .5
+    rounding boundary (must be 0), and the largest byte difference."""
+    import numpy as np
+
+    from lipreading_tpu_torch.data.dataview import roi_to_u8
+
+    g = (cpu * pre.normalize_std + pre.normalize_mean) * 255.0
+    near = (np.abs(g - np.floor(g) - 0.5)
+            <= tol * pre.normalize_std * 255.0
+            + 2 * np.spacing(np.float32(255)))
+    d = roi_to_u8(card, pre).astype(int) - roi_to_u8(cpu, pre)
+    return {"roi": float(np.abs(card - cpu).max()),
+            "bytes": int((d != 0).sum()), "away": int((d != 0)[~near].sum()),
+            "max": int(np.abs(d).max())}
+
+
+def phase_dataview(rows) -> dict:
+    """[dataview]: the fixture dataview of the training corpus built on the
+    card twice (untracked with the ERT; tracked with the conv landmarker,
+    keeping the faceless frames), with the build seconds and the ROI
+    launches per clip; the first clips of each built on the CPU too: the
+    index and the masks equal, the bytes by the boundary rule; and the
+    held-out view of the dataview trainer -> {name: view}."""
+    import numpy as np
+
+    from lipreading_tpu_torch.ops.roi import sample_rois
+
+    _, base = release_train_cfg()
+    views = {}
+    for name, lm, kw in (("ert", "ert", {}),
+                         ("tracked_conv", "conv",
+                          dict(tracked=True, keep_invalid=True))):
+        cfg = base.override(**{"preprocess.landmarker": lm})
+        path = os.path.join(DV_DIR, name)
+        reset((sample_rois,))
+        view, card, secs = build_view(path, TRAIN_CLIPS, 1, cfg, DEV, **kw)
+        n = sample_rois.launches
+        want = TRAIN_CLIPS * (2 if lm == "conv" else 1)
+        path_launches(rows, f"dataview {name}", {"roi_sampler": n})
+        nv = sum(s.get("num_valid", s["num_frames"]) for s in view.samples)
+        nf = sum(s["num_frames"] for s in view.samples)
+        log(f"[dataview] {name}: {TRAIN_CLIPS} clips -> {len(view)} samples "
+            f"({nv} of {nf} frames confident) in {secs:.2f} s on the card; "
+            f"ROI launches {n} ({n / TRAIN_CLIPS:g} a clip, want "
+            f"{want // TRAIN_CLIPS})")
+        check(n == want, f"dataview {name}: {n} ROI launches for "
+              f"{TRAIN_CLIPS} clips, want {want}")
+        ref, cpu, cpu_s = build_view(path + "_cpu", DV_CPU_CLIPS, 1, cfg,
+                                     "cpu", **kw)
+        first = [s for s in view.samples if int(s["file"][4:9]) < DV_CPU_CLIPS]
+        check(first == ref.samples, f"dataview {name}: the card's index of "
+              f"the first {DV_CPU_CLIPS} clips differs from the CPU's")
+        for i in range(len(ref)):
+            check(np.array_equal(view.frame_valid(i), ref.frame_valid(i)),
+                  f"dataview {name}: frame_valid of {ref.samples[i]['file']}"
+                  " differs card against CPU")
+        tol = DV_ROI_TOL[lm]
+        read = [byte_rule(c, r, tol, cfg.preprocess)
+                for c, r in zip(card[:DV_CPU_CLIPS], cpu)]
+        agg = {k: max(x[k] for x in read) if k in ("roi", "max")
+               else sum(x[k] for x in read) for k in read[0]}
+        log(f"[dataview] {name} card vs CPU ({DV_CPU_CLIPS} clips, CPU "
+            f"{cpu_s:.1f} s): index and frame_valid equal; ROIs max |diff| "
+            f"{agg['roi']:.3g} (limit {tol:g}); {agg['bytes']} stored bytes "
+            f"differ, by at most {agg['max']}, {agg['away']} of them away "
+            f"from a rounding boundary (must be 0)")
+        check(agg["roi"] <= tol and agg["away"] == 0 and agg["max"] <= 1,
+              f"dataview {name}: card vs CPU bytes break the boundary rule "
+              f"{agg}")
+        shutil.rmtree(path + "_cpu", ignore_errors=True)
+        views[name] = view
+    views["heldout"], _, secs = build_view(
+        os.path.join(DV_DIR, "heldout"), HELDOUT_CLIPS, HELDOUT_SEED, base,
+        DEV)
+    log(f"[dataview] held-out view: {HELDOUT_CLIPS} clips (seed "
+        f"{HELDOUT_SEED}) -> {len(views['heldout'])} samples in {secs:.2f} s")
+    return views
+
+
+def transcripts(tr, batches, beam: int) -> list[str]:
+    """What ``Trainer.evaluate`` decodes: each held-out batch's inputs
+    through ``infer.transcribe``."""
+    import torch
+
+    from lipreading_tpu_torch.infer import transcribe
+
+    out = []
+    for b in batches:
+        with torch.inference_mode():
+            rois, lengths = tr.eval_inputs(b)
+        out += transcribe(tr.model, tr.cfg, rois, lengths, beam=beam)
+    return out
+
+
+def timed_evaluate(tr, ms: list):
+    """Make ``tr.evaluate`` append its synchronised host ms to ``ms``."""
+    import torch
+
+    real = tr.evaluate
+
+    def evaluate(batches, beam=None):
+        t0 = time.perf_counter()
+        m = real(batches, beam)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return m
+
+    tr.evaluate = evaluate
+
+
+def counted_wrappers():
+    from lipreading_tpu_torch.ops import ctc, decode, roi
+
+    return {"roi_sampler": roi.sample_rois,
+            "ctc_lattice_fwd": ctc.ctc_lattice_fwd,
+            "ctc_lattice_bwd": ctc.ctc_lattice_bwd,
+            "ctc_greedy": decode.ctc_greedy_ids}
+
+
+def phase_train_dataview(views, rows):
+    """[train-dataview]: ``Trainer`` on the [dataview] corpus, warm-started
+    from the release at full width: at step 0 the held-out evaluation (the
+    joint beam at beam 8) card against CPU, exact; then ``fit`` with an
+    evaluation at its last step, launch counts, losses, the eval's CER,
+    WER and ms, and each stage's ms."""
+    import torch
+
+    from lipreading_tpu_torch.data.dataset import (
+        BatchIterator,
+        BucketedDataset,
+        batch_to_device,
+    )
+    from lipreading_tpu_torch.train.loop import Trainer
+
+    # the warm-up is step 1: the fit's last step is the evaluation's
+    tree, cfg = release_train_cfg(**{"train.eval_every": DV_STEPS + 1,
+                                     "train.log_every": 1,
+                                     "train.checkpoint_every": 0})
+    ds = BucketedDataset(views["ert"], cfg.data)
+    it = BatchIterator(ds, cfg.data.batch_size, seed=cfg.train.seed)
+    ho = BucketedDataset(views["heldout"], cfg.data)
+    held = [ho.make_batch(list(range(min(HELDOUT_SAMPLES, len(ho)))))]
+    trainers = {}
+    for device in (DEV, "cpu"):
+        shutil.rmtree(f"{TRAIN_DIR}_{device}", ignore_errors=True)
+        tr = Trainer(cfg, f"{TRAIN_DIR}_{device}", device=device)
+        tr.logger.echo = False
+        tr.warm_start(tree)
+        trainers[device] = tr
+    tr = trainers[DEV]
+
+    # batch_to_device: the card's normalised ROIs equal the CPU's exactly;
+    # PyTorch's own division by a scalar (a multiply by the reciprocal on
+    # the card) is the planted fault
+    pre = cfg.preprocess
+    norm = (pre.normalize_mean, pre.normalize_std)
+    card_rois = batch_to_device(held[0], *norm, DEV)["rois"]
+    cpu_rois = batch_to_device(held[0], *norm, "cpu")["rois"]
+    u8 = torch.as_tensor(held[0].rois_u8, device=DEV).float()
+    fault = ((u8 / 255.0) - norm[0]) / norm[1]
+    n_off = int((card_rois.cpu() != cpu_rois).sum())
+    n_fault = int((fault.cpu() != cpu_rois).sum())
+    log(f"[train-dataview] batch_to_device {tuple(card_rois.shape)}: "
+        f"{n_off} normalised values differ card vs CPU (must be 0); the "
+        f"planted fault (PyTorch's scalar division) {n_fault}")
+    check(n_off == 0 and n_fault > 0, f"batch_to_device: card vs CPU "
+          f"{n_off} values differ, planted fault {n_fault}")
+
+    t0 = time.perf_counter()
+    card = transcripts(tr, held, cfg.train.beam_width)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    cpu = transcripts(trainers.pop("cpu"), held, cfg.train.beam_width)
+    cpu_s = time.perf_counter() - t0
+    same = sum(a == b for a, b in zip(card, cpu))
+    log(f"[train-dataview] step 0 held-out evaluation, {len(card)} samples "
+        f"of batch {tuple(held[0].rois_u8.shape[:2])}, joint beam "
+        f"{cfg.train.beam_width}: card {card_ms:.1f} ms (first call), CPU "
+        f"{cpu_s:.1f} s; {same}/{len(card)} transcripts equal card vs CPU")
+    check(card == cpu, f"held-out transcripts differ card vs CPU: {card} vs "
+          f"{cpu}")
+
+    tr.train_step(next(it))                     # warm-up
+    torch.cuda.synchronize()
+    wrappers = counted_wrappers()
+    reset(wrappers.values())
+    eval_ms = []
+    timed_evaluate(tr, eval_ms)
+    t0 = time.perf_counter()
+    last = tr.fit(it, steps=DV_STEPS, eval_batches=held)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    got = {k: w.launches for k, w in wrappers.items()}
+    path_launches(rows, "train-dataview", got)
+    with open(tr.logger.path) as f:
+        steps = [x for x in map(json.loads, f) if "loss" in x]
+    for x in steps:
+        log(f"[train-dataview]   step {x['step']}: loss {x['loss']:.4f} ctc "
+            f"{x['ctc_loss']:.4f} att {x['att_loss']:.4f} grad_norm "
+            f"{x['grad_norm']:.3f}")
+    log(f"[train-dataview] fit: {DV_STEPS} steps and one evaluation in "
+        f"{fit_s:.2f} s; eval_cer {last['eval_cer']:.4f} eval_wer "
+        f"{last['eval_wer']:.4f} in {eval_ms[0]:.1f} ms (host clock, "
+        f"synchronised); launches {got}")
+    for x in steps:
+        check(all(v == v and abs(v) != float("inf") for v in x.values()
+                  if isinstance(v, float)), f"non-finite step metrics {x}")
+    want = {"roi_sampler": 0, "ctc_lattice_fwd": DV_STEPS,
+            "ctc_lattice_bwd": DV_STEPS, "ctc_greedy": 0}
+    check(got == want, f"dataview steps launched {got}, want {want} (one of "
+          "each CTC kernel a step, no ROI or greedy launch)")
+    check(len(eval_ms) == 1, f"{len(eval_ms)} evaluations in fit, want 1")
+    stages = {}
+    for _ in range(STAGE_STEPS):
+        tr.train_step(next(it), stage_ms=stages)
+    log(f"[train-dataview] stages (mean of {STAGE_STEPS} steps, host clock, "
+        "synchronised): " + ", ".join(
+            f"{k} {v / STAGE_STEPS:.2f} ms" for k, v in stages.items()))
+    del tr, trainers
+    for device in (DEV, "cpu"):
+        shutil.rmtree(f"{TRAIN_DIR}_{device}", ignore_errors=True)
+
+
+def with_faceless(batch, cfg, seed: int):
+    """``batch`` with sample 0's frames (up to its length) faceless
+    background frames."""
+    import dataclasses
+
+    from lipreading_tpu_torch.fixtures import render_faceless_frames
+
+    frames = batch.frames.copy()
+    n = int(batch.frame_lengths[0])
+    frames[0, :n] = render_faceless_frames(seed, n, cfg.data)
+    return dataclasses.replace(batch, frames=frames)
+
+
+def phase_train_tracked(rows):
+    """[train-tracked]: ``FusedTrainer(tracked=True)`` with the conv
+    landmarker and the presence head, warm-started from the release, on
+    batches whose first sample is faceless: launch counts, losses, stage
+    ms; the zero-weight pin; kernel 1 at the step's shapes; one
+    dropout-off step card against CPU with a planted fault; the tracked
+    evaluation card against CPU."""
+    import dataclasses
+
+    import torch
+
+    from lipreading_tpu_torch.data.pipeline import (
+        FixtureVideoDataset,
+        VideoBatchIterator,
+        video_batch_to_device,
+    )
+    from lipreading_tpu_torch.serve import load_server
+
+    conv = {"preprocess.landmarker": "conv"}
+    tree, cfg = release_train_cfg(**conv)
+    gpu, cpu = load_server(device=DEV), load_server(device="cpu")
+    ds = FixtureVideoDataset(TRAIN_CLIPS, seed=1, cfg=cfg.data)
+    it = VideoBatchIterator(ds, cfg.data.batch_size, seed=cfg.train.seed)
+    tr = make_trainer(cfg, tree, gpu, DEV, TRAIN_DIR, tracked=True)
+    tr.train_step(with_faceless(next(it), cfg, 0))            # warm-up
+    torch.cuda.synchronize()
+    wrappers = counted_wrappers()
+    reset(wrappers.values())
+    ms, losses, shapes = [], [], []
+    for k in range(TRACKED_STEPS):
+        batch = with_faceless(next(it), cfg, k + 1)
+        t0 = time.perf_counter()
+        m = tr.train_step(batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(v) for k, v in m.items()})
+        shapes.append(tuple(batch.frames.shape[:2]))
+    got = {k: w.launches for k, w in wrappers.items()}
+    path_launches(rows, "train-tracked", got)
+    log(f"[train-tracked] {TRACKED_STEPS} steps (batches {shapes}, sample 0 "
+        f"faceless): losses {[round(x['loss'], 4) for x in losses]}, ms per "
+        f"step {[round(x, 1) for x in ms]} (host clock, synchronised), "
+        f"launches {got}")
+    for x in losses:
+        check(all(v == v and abs(v) != float("inf") for v in x.values()),
+              f"tracked step: non-finite metrics {x}")
+    want = {"roi_sampler": 2 * TRACKED_STEPS,
+            "ctc_lattice_fwd": TRACKED_STEPS,
+            "ctc_lattice_bwd": TRACKED_STEPS, "ctc_greedy": 0}
+    check(got == want, f"tracked steps launched {got}, want {want}")
+    stages = {}
+    for k in range(STAGE_STEPS):
+        tr.train_step(with_faceless(next(it), cfg, 10 + k), stage_ms=stages)
+    log(f"[train-tracked] stages (mean of {STAGE_STEPS} steps, host clock, "
+        "synchronised): " + ", ".join(
+            f"{k} {v / STAGE_STEPS:.2f} ms" for k, v in stages.items()))
+
+    # kernel 1 at the step's shapes: a full batch at the largest bucket
+    big = with_faceless(ds.batch(list(range(cfg.data.batch_size)),
+                                 max(cfg.data.time_buckets)), cfg, 20)
+    srv = dict(gpu, cfg=cfg)
+    tracked_roi_kernels(srv, torch.as_tensor(big.frames, device=DEV),
+                        rows, "train-tracked")
+    del tr
+
+    # the zero-weight pin: a faceless sample's pixels do not reach the loss
+    off = {"model.dropout": 0.0, "train.roi_augment": 0.0}
+    _, cfg0 = release_train_cfg(**dict(conv, **off))
+    pin = []
+    for seed in (9, 10):
+        trp = make_trainer(cfg0, tree, gpu, DEV, TRAIN_DIR, tracked=True)
+        mb = trp.model_batch(video_batch_to_device(
+            with_faceless(big, cfg, seed), DEV))
+        sw = mb["sample_weight"].tolist()
+        pin.append(float(trp.train_step(with_faceless(big, cfg, seed))
+                         ["loss"]))
+        del trp
+    log(f"[train-tracked] zero-weight pin: sample weights {sw}; losses with "
+        f"two faceless backgrounds {pin[0]!r} and {pin[1]!r}")
+    check(sw[0] == 0.0 and all(w == 1.0 for w in sw[1:]),
+          f"the faceless sample's weight: {sw}")
+    check(pin[0] == pin[1], f"the faceless sample's pixels reached the "
+          f"loss: {pin}")
+
+    # one dropout-off step from the seeded initialisation, card vs CPU
+    _, cfgp = release_train_cfg(**dict(conv, **off,
+                                       **{"train.warmup_steps": 0}))
+    pb = FixtureVideoDataset(1, seed=2, cfg=cfgp.data).batch([0, 1], 32)
+    short = pb.frame_lengths.copy()
+    short[-1] -= 1
+    out = {name: step_record(cfgp, b, dev, device, name, tracked=True)
+           for name, b, dev, device in (
+               ("card", pb, gpu, DEV),
+               ("card_fault", dataclasses.replace(pb, frame_lengths=short),
+                gpu, DEV),
+               ("cpu", pb, cpu, "cpu"))}
+    lr = cfgp.train.learning_rate
+    read = {n: parity_readings(out[n], out["cpu"], lr)
+            for n in ("card", "card_fault")}
+    log(f"[train-tracked] one step without dropout from the seeded "
+        f"initialisation, batch {tuple(pb.frames.shape[:2])}: loss card "
+        f"{out['card']['loss']:.6f}, CPU {out['cpu']['loss']:.6f} "
+        f"({out['cpu']['s']:.1f} s)")
+    for k, lim in PARITY_LIMITS.items():
+        log(f"[train-tracked]   {k}: card vs CPU {read['card'][k]:.4g}, "
+            f"limit {lim:g}, planted fault (a length one short) "
+            f"{read['card_fault'][k]:.4g}")
+    for k, lim in PARITY_LIMITS.items():
+        check(read["card"][k] <= lim,
+              f"tracked step card vs CPU {k} {read['card'][k]} > {lim}")
+        check(read["card_fault"][k] > lim, f"tracked step: the planted "
+              f"fault's {k} {read['card_fault'][k]} is within {lim}")
+
+    # the tracked evaluation: held-out clips, a cutaway in the first
+    held = FixtureVideoDataset(HELDOUT_CLIPS, seed=HELDOUT_SEED,
+                               cfg=cfg.data).batch(
+        list(range(TRACKED_EVAL_SAMPLES)), max(cfg.data.time_buckets))
+    held.frames[0, 3:9] = 0
+    hyps = {}
+    for name, dev, device in (("card", gpu, DEV), ("cpu", cpu, "cpu")):
+        tre = make_trainer(cfg, tree, dev, device, TRAIN_DIR + "_" + name,
+                           tracked=True)
+        t0 = time.perf_counter()
+        hyps[name] = transcripts(tre, [held], cfg.train.beam_width)
+        secs = time.perf_counter() - t0
+        if device == DEV:
+            eval_ms = []
+            timed_evaluate(tre, eval_ms)
+            m = tre.evaluate([held])
+        del tre
+        shutil.rmtree(TRAIN_DIR + "_" + name, ignore_errors=True)
+        log(f"[train-tracked] tracked evaluation on the {name}: "
+            f"{secs:.2f} s (first call)")
+    log(f"[train-tracked] tracked evaluate, {TRACKED_EVAL_SAMPLES} held-out "
+        f"samples (frames 3-8 of the first blank), beam "
+        f"{cfg.train.beam_width}: eval_cer {m['eval_cer']:.4f} eval_wer "
+        f"{m['eval_wer']:.4f} in {eval_ms[0]:.1f} ms; transcripts card "
+        f"{hyps['card']}, CPU {'equal' if hyps['cpu'] == hyps['card'] else hyps['cpu']}")
+    check(hyps["card"] == hyps["cpu"], "tracked evaluation transcripts "
+          "differ card against CPU")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+
+def reseeding_remat(model, rois, dtype, gen, rate):
+    """The planted fault of [remat]: ``_frontend_remat`` whose recompute
+    reseeds the generator instead of replaying it."""
+    from torch.utils.checkpoint import checkpoint
+
+    ran = []
+
+    def run(r):
+        if ran:
+            gen.manual_seed(REMAT_FAULT_SEED)
+        ran.append(True)
+        return model.frontend(r, dtype, gen, rate)
+
+    return checkpoint(run, rois, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def remat_grads(tr, cfg, mb, seed: int):
+    """Loss and flat gradient (float64, host) of one training loss with
+    dropout and the ROI jitter drawn from a generator seeded ``seed``."""
+    import torch
+
+    from lipreading_tpu_torch.models.lipreader import compute_loss
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    tr.model.zero_grad(set_to_none=True)
+    loss, _ = compute_loss(tr.model, cfg, mb, train=True, gen=gen)
+    loss.backward()
+    return loss.item(), torch.cat([p.grad.detach().double().cpu().reshape(-1)
+                                   for p in tr.model.parameters()])
+
+
+def phase_remat(gpu, long, rows):
+    """[remat]: [train-flash]'s long batch (flash on), the loss and gradient
+    of one training step with and without ``train.remat``, dropout on, the
+    same generator: within limits that a generator reseeded in the
+    recompute breaks; then peak memory and step ms both ways."""
+    import torch
+
+    from lipreading_tpu_torch.data.pipeline import video_batch_to_device
+    from lipreading_tpu_torch.models import lipreader
+
+    over = {"model.flash_attention": 1, "data.max_chars": LONG_MAX_CHARS,
+            "model.flash_bwd": "pallas"}
+    tree, base = release_train_cfg(**over)
+    remat = base.override(**{"train.remat": 1})
+    batch = long_batch(long, base)
+    tr = make_trainer(base, tree, gpu, DEV, TRAIN_DIR)
+    with torch.no_grad():
+        mb = tr.model_batch(video_batch_to_device(batch, DEV))
+    wrappers = counted_wrappers()
+    got = {}
+    real = lipreader._frontend_remat
+    runs = (("plain", base), ("plain_again", base), ("remat", remat),
+            ("fault", remat))
+    for name, cfg in runs:
+        if name == "fault":
+            lipreader._frontend_remat = reseeding_remat
+        try:
+            got[name] = remat_grads(tr, cfg, mb, REMAT_SEED)
+        finally:
+            lipreader._frontend_remat = real
+    read = {n: grad_readings(got[n][1], got["plain"][1])
+            for n in ("plain_again", "remat", "fault")}
+    log(f"[remat] batch {tuple(batch.frames.shape[:2])}, flash on "
+        f"(flash_bwd=pallas), dropout {base.model.dropout}, roi_augment "
+        f"{base.train.roi_augment}, one generator: loss plain "
+        f"{got['plain'][0]!r}, remat {got['remat'][0]!r}")
+    for k, lim in REMAT_LIMITS.items():
+        log(f"[remat]   {k} against plain: remat {read['remat'][k]:.4g}, "
+            f"limit {lim:g}; plain again {read['plain_again'][k]:.4g}; "
+            f"planted fault (the recompute reseeded) {read['fault'][k]:.4g}")
+    check(got["remat"][0] == got["plain"][0],
+          f"remat changed the loss: {got['remat'][0]} vs {got['plain'][0]}")
+    for k, lim in REMAT_LIMITS.items():
+        check(read["remat"][k] <= lim, f"remat gradient {k} "
+              f"{read['remat'][k]} > {lim}")
+        check(read["fault"][k] > lim, f"remat: the planted fault's {k} "
+              f"{read['fault'][k]} is within {lim}")
+
+    # memory and time of one step, remat off and on: the activations held
+    # from the forward to the backward, the step's peak, its ms and launches
+    from lipreading_tpu_torch.models.lipreader import compute_loss
+    from lipreading_tpu_torch.ops import flash_attention as fa
+
+    wrappers.update({w.__name__: w for w in fa.WRAPPERS})
+    held, peak, step_ms, counts = {}, {}, {}, {}
+    for name, cfg in (("off", base), ("on", remat)):
+        tr.cfg = cfg
+        tr.train_step(batch)
+        torch.cuda.synchronize()
+        tr.model.zero_grad(set_to_none=True)
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        gen = torch.Generator(device=DEV).manual_seed(REMAT_SEED)
+        loss, _ = compute_loss(tr.model, cfg, mb, train=True, gen=gen)
+        held[name] = (torch.cuda.memory_allocated() - m0) / 2**20
+        loss.backward()
+        torch.cuda.synchronize()
+        peak[name] = (torch.cuda.max_memory_allocated() - m0) / 2**20
+        del loss
+        reset(wrappers.values())
+        t0 = time.perf_counter()
+        tr.train_step(batch)
+        torch.cuda.synchronize()
+        step_ms[name] = (time.perf_counter() - t0) * 1e3
+        counts[name] = {k: w.launches for k, w in wrappers.items()}
+    path_launches(rows, "remat", counts["on"])
+    log(f"[remat] one step (host clock, synchronised): remat off "
+        f"{step_ms['off']:.1f} ms, activations held from the forward to the "
+        f"backward {held['off']:.1f} MiB, the loss's peak {peak['off']:.1f} "
+        f"MiB; remat on {step_ms['on']:.1f} ms, held {held['on']:.1f} MiB, "
+        f"peak {peak['on']:.1f} MiB (above the parameters, gradients and "
+        f"optimizer state); launches of a remat step {counts['on']}")
+    layers = base.model.tf_layers
+    want = {"roi_sampler": 1, "ctc_lattice_fwd": 1, "ctc_lattice_bwd": 1,
+            "ctc_greedy": 0, "flash_fwd": layers, "flash_bwd_fused": 0,
+            "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+    check(counts["on"] == want, f"remat step: launches {counts['on']}, want "
+          f"{want} (the recompute is the frontend's alone)")
+    del tr
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+
+def phase_evaluate(rows):
+    """[evaluate]: ``python -m lipreading_tpu_torch.evaluate`` in-process
+    on the JAX script's held-out fixture clips (6 from seed 9090) from the
+    release, ``decode=cascade`` (beam 8) and ``decode=ctc`` (beam 1, the
+    greedy kernel): CER, launches, and the transcripts card equal to
+    CPU."""
+    import contextlib
+    import io
+
+    import torch
+
+    from lipreading_tpu_torch.evaluate import main as evaluate
+
+    wrappers = counted_wrappers()
+    nowhere = os.path.join(DV_DIR, "no_workdir")
+    for decode, beam, greedy in (("cascade", 8, 1), ("ctc", 1, EVAL_CLIPS)):
+        argv = [f"decode={decode}", f"beam={beam}", f"workdir={nowhere}",
+                f"n_clips={EVAL_CLIPS}"]
+        out = {}
+        for device in (DEV, "cpu"):
+            reset(wrappers.values())
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                out[device] = evaluate(argv + [f"device={device}"])
+            if device == DEV:
+                torch.cuda.synchronize()
+                card_ms = (time.perf_counter() - t0) * 1e3
+                got = {k: w.launches for k, w in wrappers.items()}
+                lines = buf.getvalue().splitlines()
+        path_launches(rows, f"evaluate {decode}", got)
+        log(f"[evaluate] decode={decode} beam={beam}: {lines[-1]}; "
+            + "".join(f"{x.strip()}; " for x in lines if "cascade:" in x)
+            + f"{card_ms:.1f} ms on the card (with loading); launches {got}; "
+            "transcripts card vs CPU "
+            + ("equal" if out[DEV]["hyps"] == out["cpu"]["hyps"]
+               else "DIFFER"))
+        check(out[DEV]["hyps"] == out["cpu"]["hyps"],
+              f"evaluate decode={decode}: card {out[DEV]['hyps']} vs CPU "
+              f"{out['cpu']['hyps']}")
+        want = {"roi_sampler": EVAL_CLIPS, "ctc_lattice_fwd": 0,
+                "ctc_lattice_bwd": 0, "ctc_greedy": greedy}
+        check(got == want, f"evaluate decode={decode}: launches {got}, want "
+              f"{want}")
+    shutil.rmtree(DV_DIR, ignore_errors=True)
 
 
 def main() -> int:
@@ -2758,6 +3435,11 @@ def main() -> int:
         phase_train(gpu, rows)
         phase_train_flash(gpu, long, rows)
         phase_train_parity(gpu)
+        views = phase_dataview(rows)
+        phase_train_dataview(views, rows)
+        phase_train_tracked(rows)
+        phase_remat(gpu, long, rows)
+        phase_evaluate(rows)
     except Exception as e:  # every phase failure ends here, without a result
         import traceback
 

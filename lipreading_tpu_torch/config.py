@@ -26,8 +26,8 @@ class PreprocessConfig:
     ert_trees: int = 96           # boosted trees per cascade (parallel-friendly)
     ert_depth: int = 4            # split depth per tree (2^d leaves)
     ert_pool: int = 128           # candidate feature pixels per cascade
-    # "ert" (this package) or "conv" (the distilled conv landmarker, a
-    # later slice of the port)
+    # "ert" (the regression-tree cascade) or "conv" (the distilled conv
+    # landmarker)
     landmarker: str = "ert"
     # ROI crop-box coordinates: "round" = integer boxes (the golden-dump
     # contract), "subpixel" = the float mouth box, "auto" = subpixel
@@ -138,6 +138,19 @@ class Config:
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+
+def load_workdir_config(workdir: str) -> Config | None:
+    """The config a ``Trainer`` wrote to ``workdir/config.json``, or None
+    where there is none."""
+    import json
+    import os
+
+    path = os.path.join(workdir, "config.json")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return from_dict(json.load(f))
 
 
 def _coerce(value: Any, like: Any) -> Any:

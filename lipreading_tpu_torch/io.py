@@ -9,7 +9,9 @@
 * ``load_release``: a release checkpoint of ``assets/`` and its config.
 * ``load_assets``: the preprocessing weights (``detector.npz``, ``ert.npz``);
   ``load_landmarker`` and ``load_presence``: the conv landmarker's and the
-  face-presence head's (``landmarker_conv.npz``, ``presence.npz``).
+  face-presence head's (``landmarker_conv.npz``, ``presence.npz``), each
+  of an asset variant ("default" or "robust"); ``load_preprocessors``: all
+  that one preprocessing setup needs, on a device.
 * ``from_jax_params``: a numpy parameter tree, from a release or from the JAX
   package's ``init_model``, turned into the ``state_dict`` of
   ``models.lipreader.LipReader``; ``to_jax_params`` is its inverse, the
@@ -256,12 +258,14 @@ def load_release(name: str, assets_dir: str | None = None,
     return tree, cfg
 
 
-def load_assets(assets_dir: str | None = None):
-    """Preprocessing weights (``detector.npz``, ``ert.npz``) ->
-    (detector params dict, ERTModel)."""
+def load_assets(assets_dir: str | None = None, variant: str = "default"):
+    """Preprocessing weights (``detector.npz`` and ``ert.npz``, or
+    ``detector_<variant>.npz`` and ``ert_<variant>.npz``; "robust" was
+    trained on styled clips) -> (detector params dict, ERTModel)."""
     d = assets_dir or ASSETS_DIR
-    det = load_params(os.path.join(d, "detector.npz"))
-    ert = ERTModel.load(os.path.join(d, "ert.npz"))
+    sfx = "" if variant == "default" else f"_{variant}"
+    det = load_params(os.path.join(d, f"detector{sfx}.npz"))
+    ert = ERTModel.load(os.path.join(d, f"ert{sfx}.npz"))
     return det, ert
 
 
@@ -286,6 +290,39 @@ def load_presence(assets_dir: str | None = None, variant: str = "default"):
     ``presence_<variant>.npz``) as a dict of numpy arrays, or None where the
     file is missing."""
     return _load_npz(assets_dir or ASSETS_DIR, "presence", variant)
+
+
+def load_preprocessors(landmarker: str = "ert", variant: str = "default",
+                       tracked: bool = False,
+                       device: str | torch.device = "cuda"):
+    """The preprocessing weights of an asset ``variant`` on ``device`` ->
+    (detector params, landmarker, presence head or None): the landmarker is
+    the ERT (``landmarker="ert"``) or the conv landmarker (``"conv"``), the
+    presence head is loaded for ``tracked``. Raises FileNotFoundError where
+    an asset is missing."""
+    from lipreading_tpu_torch.ops import detector as det_ops
+    from lipreading_tpu_torch.ops import ert as ert_ops
+    from lipreading_tpu_torch.ops import landmarker as lmk_ops
+
+    det_np, ert_np = load_assets(variant=variant)
+    if landmarker == "conv":
+        lmk_np = load_landmarker(variant=variant)
+        if lmk_np is None:
+            raise FileNotFoundError(f"no conv landmarker asset for variant "
+                                    f"{variant!r}")
+        lmk = lmk_ops.params_to_torch(lmk_np, device)
+    elif landmarker == "ert":
+        lmk = ert_ops.model_to_torch(ert_np, device)
+    else:
+        raise ValueError(f"landmarker {landmarker!r}: need 'ert' or 'conv'")
+    presence = None
+    if tracked:
+        pres_np = load_presence(variant=variant)
+        if pres_np is None:
+            raise FileNotFoundError(f"no presence head asset for variant "
+                                    f"{variant!r} (needed when tracked)")
+        presence = det_ops.params_to_torch(pres_np, device)
+    return det_ops.params_to_torch(det_np, device), lmk, presence
 
 
 def from_jax_params(tree, cfg: Config) -> "OrderedDict[str, torch.Tensor]":

@@ -1,4 +1,4 @@
-"""Character error rate (Levenshtein edit distance), as in
+"""Character and word error rates (Levenshtein edit distance), as in
 ``lipreading_tpu/metrics.py``."""
 
 from __future__ import annotations
@@ -25,8 +25,24 @@ def edit_distance(a, b) -> int:
     return int(prev[-1])
 
 
+def cer(hyp: str, ref: str) -> float:
+    """Character error rate: edits / len(ref); an empty ref gives 0 for an
+    empty hyp, else 1."""
+    if not ref:
+        return 0.0 if not hyp else 1.0
+    return edit_distance(list(hyp), list(ref)) / len(ref)
+
+
 def corpus_cer(hyps: list[str], refs: list[str]) -> float:
     """Corpus-level CER: total edits / total ref chars."""
     edits = sum(edit_distance(list(h), list(r)) for h, r in zip(hyps, refs))
     chars = sum(len(r) for r in refs)
     return edits / max(chars, 1)
+
+
+def corpus_wer(hyps: list[str], refs: list[str]) -> float:
+    """Corpus-level WER: total word edits / total ref words."""
+    edits = sum(edit_distance(h.split(), r.split())
+                for h, r in zip(hyps, refs))
+    words = sum(len(r.split()) for r in refs)
+    return edits / max(words, 1)

@@ -3,9 +3,10 @@
 ``cross_entropy_loss``, ``compute_loss`` and ``_act_dtype`` in
 ``lipreading_tpu/models/lipreader.py``).
 
-Ported so far: the patchify stem, the transformer encoder, the CTC head and
-the transformer attention decoder (``decoder="hybrid"``). The conv3d stem,
-the bi-GRU encoder and its Bahdanau decoder are later slices.
+Ported so far: the patchify stem (with ``train.remat``, recomputed in the
+backward), the transformer encoder, the CTC head and the transformer
+attention decoder (``decoder="hybrid"``). The conv3d stem, the bi-GRU
+encoder and its Bahdanau decoder are later slices.
 """
 
 from __future__ import annotations
@@ -93,16 +94,48 @@ def init_model(cfg: Config, gen: torch.Generator | None = None,
     return init_params_(LipReader(cfg), gen).to(device)
 
 
+def _frontend_remat(model: LipReader, rois: torch.Tensor,
+                    dtype: torch.dtype, gen: torch.Generator | None,
+                    rate: float) -> torch.Tensor:
+    """The frontend under ``torch.utils.checkpoint``: its activations are
+    recomputed in the backward instead of held (``train.remat``). The
+    dropout masks come from ``gen``, which ``preserve_rng_state`` does not
+    restore; so the recompute replays ``gen`` from the state the forward
+    started at, and puts back the state it found."""
+    from torch.utils.checkpoint import checkpoint
+
+    start = gen.get_state() if gen is not None else None
+    ran = []
+
+    def run(r):
+        if start is None or not ran:
+            ran.append(True)
+            return model.frontend(r, dtype, gen, rate)
+        held = gen.get_state()
+        gen.set_state(start)
+        try:
+            return model.frontend(r, dtype, gen, rate)
+        finally:
+            gen.set_state(held)
+
+    return checkpoint(run, rois, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def encode(model: LipReader, cfg: Config, rois: torch.Tensor,
            frame_lengths: torch.Tensor, dtype: torch.dtype | None = None,
            gen: torch.Generator | None = None):
     """[B, T, R, R] + lengths [B] -> [B, T, D] encoder states; ``gen``
     enables dropout (training), None is deterministic. The encoder's
     attention takes the flash kernels when ``cfg.model.flash_attention``
-    is set, with the backward ``cfg.model.flash_bwd``."""
+    is set, with the backward ``cfg.model.flash_bwd``; ``cfg.train.remat``
+    recomputes the frontend in the backward."""
     dtype = dtype or _act_dtype(cfg)
     rate = cfg.model.dropout
-    feats = model.frontend(rois, dtype, gen, rate)
+    if cfg.train.remat and torch.is_grad_enabled():
+        feats = _frontend_remat(model, rois, dtype, gen, rate)
+    else:
+        feats = model.frontend(rois, dtype, gen, rate)
     return model.encoder(feats, frame_lengths, dtype, gen, rate,
                          flash=cfg.model.flash_attention,
                          flash_bwd=cfg.model.flash_bwd)

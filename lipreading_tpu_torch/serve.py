@@ -117,31 +117,14 @@ def load_server(release: str = "transformer_hybrid_universal4",
     import torch
 
     from lipreading_tpu_torch import io
-    from lipreading_tpu_torch.ops import detector as det_ops
-    from lipreading_tpu_torch.ops import ert as ert_ops
-    from lipreading_tpu_torch.ops import landmarker as lmk_ops
 
     device = torch.device(device)
     model, cfg = io.load_release_model(release, device=device)
     cfg = cfg.override(**{"preprocess.landmarker": landmarker})
-    det_np, ert_np = io.load_assets()
-    if landmarker == "conv":
-        lmk_np = io.load_landmarker()
-        if lmk_np is None:
-            raise FileNotFoundError("assets/landmarker_conv.npz is missing")
-        lmk = lmk_ops.params_to_torch(lmk_np, device)
-    else:
-        lmk = ert_ops.model_to_torch(ert_np, device)
-    presence = None
-    if tracked:
-        pres_np = io.load_presence()
-        if pres_np is None:
-            raise FileNotFoundError("assets/presence.npz is missing (needed "
-                                    "for tracked=1)")
-        presence = det_ops.params_to_torch(pres_np, device)
-    return {"model": model, "cfg": cfg, "device": device,
-            "det": det_ops.params_to_torch(det_np, device), "lmk": lmk,
-            "presence": presence}
+    det, lmk, presence = io.load_preprocessors(landmarker, tracked=tracked,
+                                               device=device)
+    return {"model": model, "cfg": cfg, "device": device, "det": det,
+            "lmk": lmk, "presence": presence}
 
 
 def preprocess_batch(srv: dict, frames, mark=None):

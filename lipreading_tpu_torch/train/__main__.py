@@ -1,26 +1,40 @@
-"""Fused fine-tuning on the GPU (counterpart of ``scripts/train.py`` with
-``fused=1``):
+"""Training on the GPU (counterpart of ``scripts/train.py``):
 
     python -m lipreading_tpu_torch.train preset=transformer-patchify \\
         workdir=runs/ft init_from=transformer_hybrid_universal4 steps=10 \\
-        [n_clips=24] [data_seed=1] [resume=1] [device=cuda] [key=value ...]
+        [fused=1] [dataview=<dir>] [tracked=0] [n_clips=24] [data_seed=1] \\
+        [variation=0.0] [variation_max=] [assets_variant=] [resume=1] \\
+        [device=cuda] [key=value ...]
 
-Raw uint8 fixture frames (rendered from ``data_seed``) -> on-device
-detection, landmarks and ROIs -> the model's hybrid loss -> backward ->
-AdamW, ``steps`` times (default ``train.total_steps``), then a checkpoint in
-``workdir/ckpt``. ``init_from=`` warm-starts the parameters from a release in
-``assets/`` or from a checkpoint ``.msgpack`` (fresh optimizer, step 0);
-``resume=1`` continues from the latest checkpoint in ``workdir``. Any dotted
-config field can be overridden (``train.learning_rate=1e-4``). It runs on
-the GPU unless ``device=cpu`` is given. ``model.flash_attention=1`` runs the
-encoder's attention through the flash kernels, ``model.flash_bwd=auto|xla|
-pallas|fused`` picks their backward.
+Two paths, each evaluating on held-out clips every ``train.eval_every``
+steps (the joint beam at ``train.beam_width``):
 
-Not ported yet, each refused with its slice: ``fused=0`` (the dataview
-path), ``tracked``, ``preprocess.landmarker=conv``, ``variation`` and
-``train.remat=1``; and evaluation on held-out clips, which needs the joint
-beam, so a run that would reach ``train.eval_every`` stops before its first
-step (``Trainer.fit`` refuses it).
+* ``fused=1`` (the default here; ``scripts/train.py`` defaults to
+  ``fused=0``): raw uint8 fixture frames rendered from ``data_seed`` ->
+  detection, landmarks and ROIs on the device inside the step -> the model.
+  ``tracked=1`` runs the tracked preprocessing (presence head, tracking,
+  faceless frames compacted away). Held out: 4 clips from ``data_seed +
+  999983``, up to 8 samples at the largest time bucket.
+* ``fused=0`` or ``dataview=<dir>``: batches of a cached ROI dataview. With
+  no ``index.json`` there (or no ``dataview=``, then ``workdir/dataview``)
+  the fixture dataview of ``n_clips`` clips is built first, on the device;
+  the held-out view (4 clips from ``data_seed + 999983``) goes to
+  ``workdir/dataview_heldout``.
+
+``variation`` (with ``variation_max``: a per-clip level drawn in [variation,
+variation_max)) styles the clips of the dataviews it builds;
+``assets_variant`` picks the preprocessing weights ("robust" whenever the
+variation is above 0). On the fused path, as in ``scripts/train.py``, the
+variation picks only the assets.
+``preprocess.landmarker=conv`` takes the conv landmarker, ``train.remat=1``
+recomputes the frontend in the backward, ``model.flash_attention=1`` runs
+the encoder's attention through the flash kernels (``model.flash_bwd=auto|
+xla|pallas|fused`` picks their backward). ``init_from=`` warm-starts the
+parameters from a release in ``assets/`` or a checkpoint ``.msgpack`` (fresh
+optimizer, step 0); ``resume=1`` continues from the latest checkpoint in
+``workdir``, data position included. Any dotted config field can be
+overridden (``train.learning_rate=1e-4``). It runs on the GPU unless
+``device=cpu`` is given.
 """
 
 from __future__ import annotations
@@ -28,53 +42,78 @@ from __future__ import annotations
 import os
 import sys
 
-SLICE = {
-    "fused": "fused=0 trains from a prebuilt ROI dataview (data/dataset.py, "
-             "data/dataview.py), a later slice of the port (ROADMAP queue 1 "
-             "item 9)",
-    "tracked": "the tracked fused step is a later slice of the port "
-               "(ROADMAP queue 1 item 9, step 2)",
-    "variation": "appearance-varied corpora and the robust assets are a "
-                 "later slice of the port (ROADMAP queue 1 item 12)",
-}
+HELDOUT_SEED_OFFSET = 999_983
+HELDOUT_CLIPS = 4
+HELDOUT_SAMPLES = 8
 
 
-def _refuse(key: str, value: str) -> None:
-    raise NotImplementedError(f"{key}={value}: {SLICE[key]}")
+def variation_args(args: dict):
+    """Pop ``variation``, ``variation_max`` and ``assets_variant`` -> (a
+    level or a (lo, hi) pair, the asset variant: "robust" by default when
+    any level is above 0)."""
+    variation = float(args.pop("variation", 0.0))
+    vmax = args.pop("variation_max", None)
+    if vmax is not None:
+        variation = (variation, float(vmax))
+    hi = variation[1] if isinstance(variation, tuple) else variation
+    return variation, args.pop("assets_variant",
+                               "robust" if hi > 0 else "default")
+
+
+def _flag(args: dict, key: str, default: str) -> bool:
+    return args.pop(key, default) in ("1", "true")
+
+
+def _dataview_data(cfg, workdir, dataview_path, n_clips, data_seed,
+                   variation, assets_variant, device):
+    """The dataview path's dataset and held-out batches, building the
+    fixture views where they are missing."""
+    from lipreading_tpu_torch.data.dataset import BucketedDataset
+    from lipreading_tpu_torch.data.dataview import (
+        Dataview,
+        build_fixture_dataview,
+    )
+
+    def view_at(path, clips, seed):
+        if os.path.exists(os.path.join(path, "index.json")):
+            return Dataview(path)
+        print(f"building fixture dataview at {path} ...")
+        return build_fixture_dataview(
+            path, n_clips=clips, seed=seed, data_cfg=cfg.data,
+            pre_cfg=cfg.preprocess, variation=variation,
+            assets_variant=assets_variant, device=device)
+
+    ds = BucketedDataset(
+        view_at(dataview_path or os.path.join(workdir, "dataview"), n_clips,
+                data_seed), cfg.data)
+    ho = BucketedDataset(
+        view_at(os.path.join(workdir, "dataview_heldout"), HELDOUT_CLIPS,
+                data_seed + HELDOUT_SEED_OFFSET), cfg.data)
+    return ds, [ho.make_batch(list(range(min(HELDOUT_SAMPLES, len(ho)))))]
 
 
 def main(argv: list[str]) -> dict:
     from lipreading_tpu_torch.config import parse_overrides, preset
 
     args = parse_overrides(argv)
-    if args.get("fused", "1") not in ("1", "true") or "dataview" in args:
-        _refuse("fused", args.get("fused", "0"))
-    args.pop("fused", None)
-    if args.get("tracked", "0") not in ("0", "false"):
-        _refuse("tracked", args["tracked"])
-    args.pop("tracked", None)
-    for key in ("variation", "variation_max", "assets_variant"):
-        if key in args:
-            _refuse("variation", f"{key}={args[key]}")
     cfg = preset(args.pop("preset", "transformer-patchify"))
     workdir = args.pop("workdir", f"runs/{cfg.name}")
+    dataview_path = args.pop("dataview", None)
+    fused = _flag(args, "fused", "1") and dataview_path is None
+    tracked = _flag(args, "tracked", "0")
     steps = int(args.pop("steps", 0)) or None
-    resume = args.pop("resume", "0") in ("1", "true")
+    resume = _flag(args, "resume", "0")
     init_from = args.pop("init_from", None)
     n_clips = int(args.pop("n_clips", 24))
     data_seed = int(args.pop("data_seed", 1))
     device = args.pop("device", "cuda")
+    variation, assets_variant = variation_args(args)
     if args:
         cfg = cfg.override(**args)
-    if cfg.preprocess.landmarker == "conv":
-        raise NotImplementedError(
-            "preprocess.landmarker=conv: training with the conv landmarker "
-            "comes with the tracked fused step, a later slice of the port "
-            "(ROADMAP queue 1 item 9, step 2)")
-    if cfg.train.remat:
-        raise NotImplementedError(
-            "train.remat=1: rematerialising the frontend is a later slice "
-            "of the port (ROADMAP queue 1 item 9)")
+    if tracked and not fused:
+        raise SystemExit("tracked=1 is a fused-path option; build a tracked "
+                         "dataview with python -m "
+                         "lipreading_tpu_torch.generate_dataview tracked=1")
 
     import torch
 
@@ -82,19 +121,35 @@ def main(argv: list[str]) -> dict:
         raise SystemExit("no CUDA device; pass device=cpu to train on the CPU")
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    from lipreading_tpu_torch.data.pipeline import (
-        FixtureVideoDataset,
-        VideoBatchIterator,
-    )
-    from lipreading_tpu_torch.io import load_assets, load_release
-    from lipreading_tpu_torch.ops.detector import params_to_torch
-    from lipreading_tpu_torch.ops.ert import model_to_torch
+    from lipreading_tpu_torch.io import load_preprocessors, load_release
     from lipreading_tpu_torch.train.checkpoint import load_checkpoint
-    from lipreading_tpu_torch.train.loop import FusedTrainer
+    from lipreading_tpu_torch.train.loop import FusedTrainer, Trainer
 
-    det_np, ert_np = load_assets()
-    trainer = FusedTrainer(cfg, workdir, params_to_torch(det_np, device),
-                           model_to_torch(ert_np, device), device=device)
+    if fused:
+        from lipreading_tpu_torch.data.pipeline import (
+            FixtureVideoDataset,
+            VideoBatchIterator as Iterator,
+        )
+
+        det, lmk, presence = load_preprocessors(
+            cfg.preprocess.landmarker, assets_variant, tracked, device)
+        trainer = FusedTrainer(cfg, workdir, det, lmk, device=device,
+                               presence=presence, tracked=tracked)
+        ds = FixtureVideoDataset(n_clips, seed=data_seed, cfg=cfg.data)
+        heldout = FixtureVideoDataset(
+            HELDOUT_CLIPS, seed=data_seed + HELDOUT_SEED_OFFSET, cfg=cfg.data)
+        eval_batches = [heldout.batch(
+            list(range(min(HELDOUT_SAMPLES, len(heldout)))),
+            max(cfg.data.time_buckets))]
+    else:
+        from lipreading_tpu_torch.data.dataset import (
+            BatchIterator as Iterator,
+        )
+
+        ds, eval_batches = _dataview_data(
+            cfg, workdir, dataview_path, n_clips, data_seed, variation,
+            assets_variant, device)
+        trainer = Trainer(cfg, workdir, device=device)
     if init_from:
         if os.path.exists(init_from):
             _, p0, _, _, _ = load_checkpoint(init_from)
@@ -110,13 +165,13 @@ def main(argv: list[str]) -> dict:
     it_state = trainer.restore() if resume else {}
     if it_state:
         print(f"resumed at step {trainer.step}")
-    ds = FixtureVideoDataset(n_clips, seed=data_seed, cfg=cfg.data)
-    it = (VideoBatchIterator.from_state(ds, cfg.data.batch_size, it_state)
+    it = (Iterator.from_state(ds, cfg.data.batch_size, it_state)
           if it_state else
-          VideoBatchIterator(ds, cfg.data.batch_size, seed=cfg.train.seed))
+          Iterator(ds, cfg.data.batch_size, seed=cfg.train.seed))
     print(f"training {cfg.name} ({cfg.encoder}/{cfg.decoder}) on {len(ds)} "
-          f"samples, device {trainer.device}")
-    last = trainer.fit(it, steps=steps)
+          f"samples ({'fused' if fused else 'dataview'}"
+          f"{', tracked' if tracked else ''}), device {trainer.device}")
+    last = trainer.fit(it, steps=steps, eval_batches=eval_batches)
     trainer.save(it)
     print("final:", last)
     return last

@@ -2,20 +2,26 @@
 ``lipreading_tpu/train/loop.py``), on one device, without a mesh.
 
 ``Trainer`` owns the model (float32 parameters), the optimizer
-(``train.optim.AdamW``, optax's semantics), the step, checkpoints and the
-JSONL metrics. One step: the hybrid loss (``models.lipreader.compute_loss``
-with dropout and the ROI jitter drawn from the step's generator), its
-gradients, the global norm of the unclipped gradients, one optimizer update.
-The step's generator is seeded from ``(cfg.train.seed, step)`` alone, so a
-restored run replays the same dropout masks.
+(``train.optim.AdamW``, optax's semantics), the step, checkpoints, the
+JSONL metrics and the held-out evaluation. Its step takes a dataview batch
+(``data.dataset.Batch``: uint8 ROIs, normalised on the device by
+``batch_to_device``) or a dict of normalised ROIs. One step: the hybrid
+loss (``models.lipreader.compute_loss`` with dropout and the ROI jitter
+drawn from the step's generator), its gradients, the global norm of the
+unclipped gradients, one optimizer update. The step's generator is seeded
+from ``(cfg.train.seed, step)`` alone, so a restored run replays the same
+dropout masks. ``fit`` evaluates on held-out batches every
+``train.eval_every`` steps: ``infer.transcribe`` at ``train.beam_width``
+(the joint CTC/attention beam for the hybrid decoder), CER and WER, and one
+sample decode, in the metrics log.
 
 ``FusedTrainer`` takes raw uint8 frame batches (``data.pipeline.VideoBatch``)
-and runs the untracked preprocessing (detector, ERT, ROI kernel) on the
-device inside the step, without gradients, as the JAX step takes none
-through it; on a CUDA device the step's CTC loss runs the lattice kernels.
-
-Later slices: the dataview batches (``data/dataset.py``), the tracked fused
-step, ``remat`` and ``evaluate`` (a held-out eval on the joint beam).
+and runs the preprocessing on the device inside the step, without
+gradients, as the JAX step takes none through it: untracked (detector, ERT
+or conv landmarker, ROI kernel), or tracked (presence head, ``track_boxes``)
+with each sample's faceless frames compacted away and a sample with none
+left weighted out of the loss. On a CUDA device the step's CTC loss runs the
+lattice kernels.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import numpy as np
 import torch
 
 from lipreading_tpu_torch.config import Config
+from lipreading_tpu_torch.data.dataset import Batch, batch_to_device
 from lipreading_tpu_torch.io import from_jax_params, to_jax_params
 from lipreading_tpu_torch.models.lipreader import compute_loss, init_model
 from lipreading_tpu_torch.text import Vocab
@@ -38,17 +45,6 @@ from lipreading_tpu_torch.train.checkpoint import (
 )
 from lipreading_tpu_torch.train.metrics_log import MetricsLogger
 from lipreading_tpu_torch.train.optim import AdamW
-
-EVAL_SLICE = ("evaluate (the held-out eval on the joint CTC/attention beam, "
-              "infer.transcribe at beam_width 8) is ROADMAP queue 1 item 9, "
-              "step 4, a later slice of the port")
-
-
-def eval_falls(step: int, steps: int, eval_every: int) -> bool:
-    """Whether a run of ``steps`` updates from ``step`` reaches a multiple of
-    ``eval_every`` (0 = never)."""
-    return bool(eval_every) and (step + steps) // eval_every > step // eval_every
-
 
 def step_seed(seed: int, step: int) -> int:
     """The seed of the generator of training step ``step``."""
@@ -75,30 +71,29 @@ class _StageClock:
 
 
 def _batch_dims(batch):
-    """(B, T, valid frames, longest target) of a VideoBatch or a dict."""
+    """(B, T, valid frames, longest target) of a Batch, VideoBatch or
+    dict."""
     if isinstance(batch, dict):
         B, T = batch["rois"].shape[:2]
         fl, tl = batch["frame_lengths"], batch["target_lengths"]
     else:
-        B, T = batch.frames.shape[:2]
+        x = batch.rois_u8 if isinstance(batch, Batch) else batch.frames
+        B, T = x.shape[:2]
         fl, tl = batch.frame_lengths, batch.target_lengths
     return B, T, int(np.asarray(fl).sum()), int(np.asarray(tl).max())
 
 
 class Trainer:
-    """Owns the model, the optimizer state, the step and checkpoints.
+    """Owns the model, the optimizer state, the step, checkpoints and the
+    evaluation.
 
-    ``train_step`` takes a model batch: a dict of ``rois`` (normalised
-    float32 [B, T, R, R]), ``frame_lengths``, ``targets``,
-    ``target_lengths``, ``ctc_labels`` and ``ctc_lengths`` (numpy or
-    tensors)."""
+    ``train_step`` takes a ``data.dataset.Batch``, or a model batch: a dict
+    of ``rois`` (normalised float32 [B, T, R, R]), ``frame_lengths``,
+    ``targets``, ``target_lengths``, ``ctc_labels`` and ``ctc_lengths``
+    (numpy or tensors)."""
 
     def __init__(self, cfg: Config, workdir: str,
                  device: str | torch.device = "cuda"):
-        if cfg.train.remat:
-            raise NotImplementedError(
-                "train.remat: recomputing the frontend in the backward is a "
-                "later slice of the port (ROADMAP queue 1 item 9)")
         self.cfg = cfg
         self.workdir = workdir
         self.device = torch.device(device)
@@ -132,12 +127,23 @@ class Trainer:
         clock.mark("optimizer")
         return {k: v.detach() for k, v in metrics.items()}
 
-    def train_step(self, batch: dict, stage_ms: dict | None = None) -> dict:
-        """One update from a model batch; returns the step's metrics as
-        tensors (loss, ctc_loss, att_loss, grad_norm). ``stage_ms``, if
-        given, receives each stage's synchronised host milliseconds."""
+    def device_batch(self, batch) -> dict:
+        """A Batch (normalised on the device) or a dict -> the model batch
+        on the trainer's device."""
+        if isinstance(batch, Batch):
+            p = self.cfg.preprocess
+            return batch_to_device(batch, p.normalize_mean, p.normalize_std,
+                                   self.device)
+        return {k: torch.as_tensor(v).to(self.device)
+                for k, v in batch.items() if k != "texts"}
+
+    def train_step(self, batch, stage_ms: dict | None = None) -> dict:
+        """One update from a Batch or a model batch dict; returns the step's
+        metrics as tensors (loss, ctc_loss, att_loss, grad_norm).
+        ``stage_ms``, if given, receives each stage's synchronised host
+        milliseconds."""
         clock = _StageClock(stage_ms, self.device)
-        dev = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+        dev = self.device_batch(batch)
         clock.mark("host_to_device")
         metrics = self._update(dev, self.step_generator(), clock)
         self.step += 1
@@ -145,18 +151,14 @@ class Trainer:
 
     # --- the loop ------------------------------------------------------------
 
-    def fit(self, iterator, steps: int | None = None) -> dict:
+    def fit(self, iterator, steps: int | None = None,
+            eval_batches: list | None = None) -> dict:
         """``steps`` updates (default ``train.total_steps``) from
-        ``iterator``, logging every ``log_every`` and checkpointing every
-        ``checkpoint_every`` steps. Refuses before its first step when the
-        run reaches ``train.eval_every``: ``evaluate`` is not ported yet."""
+        ``iterator``, logging every ``log_every``, evaluating on
+        ``eval_batches`` every ``eval_every`` and checkpointing every
+        ``checkpoint_every`` steps."""
         t_cfg = self.cfg.train
         steps = steps if steps is not None else t_cfg.total_steps
-        if eval_falls(self.step, steps, t_cfg.eval_every):
-            raise NotImplementedError(
-                f"fit: steps {self.step + 1}..{self.step + steps} reach "
-                f"train.eval_every={t_cfg.eval_every}, but {EVAL_SLICE}; run "
-                "fewer steps or set train.eval_every=0")
         from lipreading_tpu_torch.flops import (
             device_peak_flops,
             train_step_flops,
@@ -188,13 +190,42 @@ class Trainer:
                 t0 = time.perf_counter()
                 window_frames = 0
                 window_flops = 0.0
+            if (t_cfg.eval_every and self.step % t_cfg.eval_every == 0
+                    and eval_batches):
+                last.update(self.evaluate(eval_batches))
             if (t_cfg.checkpoint_every
                     and self.step % t_cfg.checkpoint_every == 0):
                 self.save(iterator)
         return last
 
-    def evaluate(self, batches, beam=None) -> dict:
-        raise NotImplementedError(EVAL_SLICE)
+    # --- evaluation ----------------------------------------------------------
+
+    def eval_inputs(self, batch):
+        """A held-out batch -> (ROIs [B, T, R, R], lengths [B]) on the
+        device."""
+        dev = self.device_batch(batch)
+        return dev["rois"], dev["frame_lengths"]
+
+    def evaluate(self, batches, beam: int | None = None) -> dict:
+        """CER and WER of ``transcribe`` (beam ``train.beam_width`` unless
+        ``beam``) on held-out batches (each with ``texts``); logs them and
+        the first sample's decode."""
+        from lipreading_tpu_torch.infer import transcribe
+        from lipreading_tpu_torch.metrics import corpus_cer, corpus_wer
+
+        hyps, refs = [], []
+        for b in batches:
+            with torch.inference_mode():
+                rois, lengths = self.eval_inputs(b)
+            hyps.extend(transcribe(self.model, self.cfg, rois, lengths,
+                                   beam=beam, vocab=self.vocab))
+            refs.extend(b["texts"] if isinstance(b, dict) else b.texts)
+        m = {"eval_cer": corpus_cer(hyps, refs),
+             "eval_wer": corpus_wer(hyps, refs)}
+        self.logger.log(self.step, **m)
+        self.logger.log_text(self.step, "sample_decode",
+                             f"hyp={hyps[0]!r} ref={refs[0]!r}")
+        return m
 
     # --- checkpointing -------------------------------------------------------
 
@@ -249,31 +280,57 @@ class Trainer:
 
 class FusedTrainer(Trainer):
     """Trainer whose step runs video -> ROI preprocessing on the device ahead
-    of the model. ``det_params`` and ``ert_model`` come from
-    ``ops.detector.params_to_torch`` and ``ops.ert.model_to_torch`` on the
-    trainer's device."""
+    of the model. ``det_params``, ``landmarker`` and ``presence`` come from
+    ``io.load_preprocessors`` on the trainer's device: the landmarker is the
+    ERT or the conv landmarker (``cfg.preprocess.landmarker``), and
+    ``tracked=True`` (which needs the presence head) runs the tracked
+    preprocessing and compacts each sample's confident frames to its front
+    (``ops.tracking.compact_valid_frames``) before the model."""
 
-    def __init__(self, cfg: Config, workdir: str, det_params, ert_model,
-                 device: str | torch.device = "cuda"):
-        if cfg.preprocess.landmarker != "ert":
-            raise NotImplementedError(
-                f"landmarker {cfg.preprocess.landmarker!r}: training with "
-                "the conv landmarker comes with the tracked fused step, a "
-                "later slice of the port (ROADMAP queue 1 item 9, step 2)")
+    def __init__(self, cfg: Config, workdir: str, det_params, landmarker,
+                 device: str | torch.device = "cuda", presence=None,
+                 tracked: bool = False):
+        if tracked and presence is None:
+            raise ValueError("tracked=True requires the presence head")
         super().__init__(cfg, workdir, device=device)
         self._det = det_params
-        self._ert = ert_model
+        self._lmk = landmarker
+        self._presence = presence
+        self._tracked = tracked
+
+    def preprocess(self, frames: torch.Tensor, lengths: torch.Tensor):
+        """uint8 frames [B, T, H, W, 3] and lengths on the device -> (ROIs,
+        lengths): tracked, the confident frames compacted and the lengths
+        counting them."""
+        from lipreading_tpu_torch.ops.preprocess import (
+            preprocess_clips,
+            preprocess_clips_tracked,
+        )
+        from lipreading_tpu_torch.ops.tracking import compact_valid_frames
+
+        pre = self.cfg.preprocess
+        if not self._tracked:
+            return preprocess_clips(self._det, self._lmk, frames, pre), lengths
+        rois, valid = preprocess_clips_tracked(self._det, self._presence,
+                                               self._lmk, frames, pre)
+        return compact_valid_frames(rois, valid, lengths)
 
     def model_batch(self, dev: dict) -> dict:
         """Device batch with uint8 ``frames`` -> the model batch with
-        ``rois`` (no gradients through preprocessing)."""
-        from lipreading_tpu_torch.ops.preprocess import preprocess_clips
-
+        ``rois`` (no gradients through preprocessing). Tracked, the CTC
+        labels are cut to what the confident frames can align, as the
+        dataview batches' are, and a sample left with no frame weighs
+        nothing (its lengths are clamped to 1 for the shapes' sake)."""
         with torch.no_grad():
-            rois = preprocess_clips(self._det, self._ert, dev["frames"],
-                                    self.cfg.preprocess)
+            rois, new_len = self.preprocess(dev["frames"],
+                                            dev["frame_lengths"])
         mb = dict(dev, rois=rois)
         del mb["frames"]
+        if self._tracked:
+            mb["ctc_lengths"] = torch.minimum(
+                dev["ctc_lengths"], torch.clamp((new_len - 1) // 2, min=1))
+            mb["sample_weight"] = (new_len > 0).float()
+            mb["frame_lengths"] = torch.clamp(new_len, min=1)
         return mb
 
     def train_step(self, batch, stage_ms: dict | None = None) -> dict:
@@ -289,3 +346,10 @@ class FusedTrainer(Trainer):
         metrics = self._update(mb, gen, clock)
         self.step += 1
         return metrics
+
+    def eval_inputs(self, batch):
+        """A held-out ``VideoBatch`` -> the ROIs and lengths the model
+        reads: the whole batch preprocessed, then (tracked) compacted."""
+        frames = torch.as_tensor(batch.frames, device=self.device)
+        lengths = torch.as_tensor(batch.frame_lengths, device=self.device)
+        return self.preprocess(frames, lengths)

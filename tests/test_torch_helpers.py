@@ -55,6 +55,22 @@ def file_hang_guard():
         yield
 
 
+@pytest.fixture(scope="module")
+def few_torch_threads():
+    """Two torch threads over a whole test file, the previous count after
+    it: under the tier-1 run's 6 workers, torch's default of a thread a
+    core oversubscribes the machine, and a training loop's waiting threads
+    then slow it 10-15 times."""
+    import torch
+
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
+
+
 def test_synth_frames_shape_value_and_delay():
     t0 = time.perf_counter()
     out = synth_frames((3, 4, 5, 0.2))

@@ -160,7 +160,12 @@ def test_port_imports_nothing_of_jax():
             "lipreading_tpu_torch/ops/tracking.py",
             "lipreading_tpu_torch/ops/landmarker.py",
             "lipreading_tpu_torch/data/video.py",
-            "lipreading_tpu_torch/serve.py"} <= names
+            "lipreading_tpu_torch/serve.py",
+            "lipreading_tpu_torch/data/dataview.py",
+            "lipreading_tpu_torch/data/dataset.py",
+            "lipreading_tpu_torch/evaluate.py",
+            "lipreading_tpu_torch/generate_dataview.py",
+            "lipreading_tpu_torch/train/__main__.py"} <= names
     for path in srcs:
         with open(path) as f:
             text = f.read()

@@ -2,8 +2,8 @@
 package: the hybrid loss and every gradient leaf (``compute_loss`` with
 ``rng=None``), the optimizer against optax, the schedule, the FLOP counts,
 the config overrides; and the port's own trainer: dropout, the step
-generator, restore replay, logging, checkpoints and the refusals of what is
-not ported yet.
+generator, restore replay, logging, checkpoints, the held-out evaluation in
+``fit``, ``train.remat`` and each path of the training entry.
 
 Tolerances, each with its reason:
 * float32 loss rtol 1e-5 and gradients rtol 1e-3 with atol 1e-6 + 1e-4 of
@@ -19,6 +19,7 @@ Tolerances, each with its reason:
   difference of two close products.
 """
 
+import json
 import os
 
 import jax
@@ -44,7 +45,10 @@ from lipreading_tpu_torch.models import nn as tnn
 from lipreading_tpu_torch.models.transformer import sinusoidal_positions
 from lipreading_tpu_torch.train import optim
 from lipreading_tpu_torch.train.checkpoint import latest_checkpoint
-from lipreading_tpu_torch.train.loop import Trainer, eval_falls, step_seed
+from lipreading_tpu_torch.train.loop import Trainer, step_seed
+from tests.test_torch_helpers import few_torch_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 SMALL = dict(frontend="patchify", patch_dim=16, frontend_dim=24, tf_dim=32,
              tf_heads=2, tf_mlp=64, tf_layers=1, tf_dec_layers=1,
@@ -365,46 +369,95 @@ def test_step_seed_depends_on_seed_and_step():
     assert len({step_seed(s, t) for s in range(3) for t in range(3)}) == 9
 
 
-def test_fit_logs_checkpoints_and_refuses_evaluation(tmp_path):
+def test_fit_logs_checkpoints_and_evaluates(tmp_path):
+    """Logs every step, checkpoints every 2, and at ``eval_every`` decodes
+    the held-out batches on the joint beam: CER and WER in the step's log
+    line and in ``fit``'s result, one sample decode in the text log."""
     cfg, _ = _cfgs(log_every=1, checkpoint_every=2, eval_every=3,
-                   warmup_steps=1)
+                   warmup_steps=1, max_decode_len=8)
     tr = _trainer(tmp_path, cfg)
-    with pytest.raises(NotImplementedError, match="joint"):
-        tr.fit(_Batches(), steps=3)
-    assert tr.step == 0                    # refused before any step
-    last = tr.fit(_Batches(), steps=2)
-    assert tr.step == 2 and np.isfinite(last["loss"])
-    assert {"frames_per_sec", "tflops_per_sec", "grad_norm",
-            "epoch"} <= set(last)
-    lines = open(os.path.join(tmp_path, "logs", "metrics.jsonl")).readlines()
-    assert len(lines) == 2
+    tr.logger.echo = False
+    held = [dict(_Batches(pos=7).__next__(), texts=["ab", "c d", "e"])]
+    last = tr.fit(_Batches(), steps=3, eval_batches=held)
+    assert tr.step == 3 and np.isfinite(last["loss"])
+    assert {"frames_per_sec", "tflops_per_sec", "grad_norm", "epoch",
+            "eval_cer", "eval_wer"} <= set(last)
+    with open(os.path.join(tmp_path, "logs", "metrics.jsonl")) as f:
+        lines = [json.loads(x) for x in f]
+    assert [x["step"] for x in lines] == [1, 2, 3, 3, 3]
+    assert lines[3]["eval_cer"] == last["eval_cer"] >= 0
+    assert lines[4]["sample_decode"].endswith("ref='ab'")
     assert latest_checkpoint(tr.ckpt_dir).endswith("ckpt_00000002.msgpack")
-    with pytest.raises(NotImplementedError):
-        tr.evaluate([])
-    assert eval_falls(0, 500, 500) and not eval_falls(0, 499, 500)
-    assert not eval_falls(10, 10 ** 6, 0) and eval_falls(499, 1, 500)
+    # no held-out batches: no evaluation
+    tr2 = _trainer(tmp_path / "b", cfg)
+    tr2.logger.echo = False
+    assert "eval_cer" not in tr2.fit(_Batches(), steps=3)
 
 
-def test_trainer_refuses_remat(tmp_path):
-    cfg, _ = _cfgs(remat=True)
-    with pytest.raises(NotImplementedError, match="remat"):
-        _trainer(tmp_path, cfg)
+def test_trainer_takes_remat(tmp_path):
+    """``train.remat`` recomputes the frontend in the backward: the same
+    step, with dropout and the ROI jitter on, as without it."""
+    out = []
+    for remat in (False, True):
+        cfg, _ = _cfgs(remat=remat, roi_augment=0.15, warmup_steps=0)
+        cfg = cfg.override(**{"model.dropout": 0.2})
+        tr = _trainer(tmp_path / str(remat), cfg)
+        m = tr.train_step(next(_Batches()))
+        out.append(({k: float(v) for k, v in m.items()},
+                    {k: p.detach().clone()
+                     for k, p in tr.model.named_parameters()}))
+    assert out[0][0] == out[1][0]
+    for k, p in out[0][1].items():
+        assert torch.equal(p, out[1][1][k]), k
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["fused=0"], "dataview"),
-    (["dataview=runs/x"], "dataview"),
-    (["tracked=1"], "tracked"),
-    (["variation=0.5"], "variation"),
-    (["preprocess.landmarker=conv"], "landmarker"),
-    (["train.remat=1"], "remat"),
-    (["device=cpu", "steps=600", "n_clips=1"], "joint"),
+SMALL_ARGS = ["device=cpu", "n_clips=1", "model.patch_dim=16",
+              "model.frontend_dim=24", "model.tf_dim=32", "model.tf_heads=2",
+              "model.tf_mlp=64", "model.tf_layers=1", "model.tf_dec_layers=1",
+              "model.highway_layers=1", "data.batch_size=2",
+              "data.time_buckets=32", "train.log_every=1",
+              "train.warmup_steps=1", "train.max_decode_len=8"]
+
+
+@pytest.mark.parametrize("argv,expect", [
+    (["fused=0", "steps=2", "train.eval_every=2"], "dataview+eval"),
+    (["dataview={tmp}/x", "steps=1"], "dataview"),
+    (["tracked=1", "preprocess.landmarker=conv", "steps=1"], "fused"),
+    (["variation=0.5", "assets_variant=robust", "steps=1"], "fused"),
+    (["preprocess.landmarker=conv", "steps=1"], "fused"),
+    (["train.remat=1", "steps=1"], "fused"),
+    (["steps=2", "train.eval_every=2"], "fused+eval"),
 ])
-def test_entry_point_refuses_later_slices(argv, match, tmp_path):
+def test_entry_point_runs_each_path(argv, expect, tmp_path):
+    """Each training path of the entry on the CPU at a small width: the
+    dataview path builds its views (``workdir/dataview`` and the held-out
+    ``workdir/dataview_heldout``, or the one named) and trains from them;
+    the fused path trains from frames, tracked with the conv landmarker,
+    with the robust assets, with remat; a run that reaches
+    ``train.eval_every`` evaluates on the held-out clips."""
     from lipreading_tpu_torch.train.__main__ import main
 
-    with pytest.raises(NotImplementedError, match=match):
-        main(argv + [f"workdir={tmp_path}"])
+    wd = tmp_path / "run"
+    argv = [a.format(tmp=tmp_path) for a in argv]
+    last = main(argv + SMALL_ARGS + [f"workdir={wd}"])
+    assert np.isfinite(last["loss"])
+    views = [p for p in (tmp_path / "x", wd / "dataview",
+                         wd / "dataview_heldout")
+             if (p / "index.json").exists()]
+    if expect.startswith("dataview"):
+        want = ([wd / "dataview"] if "fused=0" in argv[0]
+                else [tmp_path / "x"])
+        assert views == want + [wd / "dataview_heldout"]
+    else:
+        assert views == []
+    assert ("eval_cer" in last) == expect.endswith("+eval")
+    with open(wd / "config.json") as f:
+        saved = json.load(f)
+    for a in argv:
+        k, v = a.split("=", 1)
+        if "." in k:
+            part, field = k.split(".")
+            assert str(saved[part][field]).lower() in (v, "true"), a
 
 
 def test_entry_point_defaults_to_the_card(tmp_path):
