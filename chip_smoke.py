@@ -152,6 +152,37 @@ width and depth (batch 8, buckets 32-128):
   launch a clip; one greedy launch for the cascade's batch, one a clip for
   the CTC head) and the transcripts card equal to CPU.
 
+The bi-GRU family and the conv3d stem (the ``bigru_ctc`` and
+``transformer_hybrid_universal`` releases at full width and depth) add
+four phases:
+
+* ``[bigru]``: ``bigru_ctc`` on ``[path]``'s 8 clips (bucket 96, untracked
+  ERT): greedy transcripts card equal to CPU with one ROI and one greedy
+  launch a call; the cascade (beam 8, LM 0.4) at the default margins and
+  at ``margin=inf`` card equal to CPU, one greedy launch a call; the
+  encoder output card against CPU from the card's ROIs within a limit a
+  planted fault (the backward direction reversed over the padded T with
+  ``torch.flip``) breaks; CER, the host ms of the stem, the recurrence and
+  head + greedy, one recurrence's device ops and busy ms
+  (``torch.profiler``), peak memory;
+* ``[conv3d]``: ``transformer_hybrid_universal`` on the same clips at
+  buckets 96 and 128: greedy and cascade transcripts card equal to CPU
+  with launches counted; the stem's output within a limit a symmetric pad
+  of the 5x5 stride-2 convolution breaks; the stem's ms beside the patchify
+  stem's;
+* ``[serve-bigru]``: ``serve_batch`` on one steady batch of 16 rendered
+  clips with ``release=bigru_ctc`` and the tracked conv preprocessing:
+  every result present, 2 ROI launches, the stage split, the first 4
+  clips equal to the CPU's;
+* ``[train-bigru]``: ``FusedTrainer`` from ``bigru_ctc`` (batch 8, buckets
+  32-128, the release's training config): finite losses, one ROI and one
+  launch of each CTC kernel a step, the stages; a fixed batch's loss falls
+  from the seeded initialisation; a bf16 step card against CPU within
+  ``[parity]``'s kind of limits that a length one short breaks; a float32
+  ``decoder=hybrid`` model (the Bahdanau decoder): its teacher-forced
+  logits card against CPU within a limit that the attention mask off
+  breaks, then one step; one step at ``teacher_forcing=0.5``.
+
 Each kernel row's ``launches_by_path`` holds its launches on each of these
 paths' runs.
 
@@ -162,6 +193,7 @@ full float32 (TF32 off).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -317,6 +349,30 @@ SERVE_KW = dict(source="render", n_clips=64, B=16, bucket=96, beam=8,
                 lm_weight=0.4, tracked=True, landmarker="conv")
 SERVE_CPU_CLIPS = 4         # [serve]'s first clips decoded on the CPU too
 RESCORE_BUCKET = 8          # transcribe_cascade's default rescore_bucket
+
+# the bi-GRU family and the conv3d stem ([bigru], [conv3d], [serve-bigru],
+# [train-bigru])
+BIGRU_RELEASE = "bigru_ctc"
+CONV3D_RELEASE = "transformer_hybrid_universal"
+BIGRU_BUCKET = 96           # [path]'s clips, as served
+CONV3D_BUCKETS = (96, 128)
+BIGRU_TRAIN_STEPS = 3
+# card vs CPU from the same inputs, rel_err (over the valid frames): the
+# card's reading must stay within each limit and a planted fault break it;
+# each limit sits between the two readings on an NVIDIA H100 80GB HBM3 at
+# 700 W (PERF.md, section 6)
+BIGRU_ENC_LIMIT = 1e-1      # bf16 encoder output: card 3.1e-2, fault
+                            # (torch.flip) 1.75
+CONV3D_STEM_LIMIT = 2e-2    # bf16 stem output: card 3.3e-3, fault (a
+                            # symmetric pad) 0.19
+BIGRU_LOGITS_LIMIT = 1e-3   # float32 teacher-forced logits: card 3.9e-5,
+                            # fault (attention mask off) 0.23
+# one bf16 step, [parity]'s readings; the fault is a length one short. The
+# bf16 recurrence rounds at every op of 32 steps, so the card reads nearer
+# [parity]'s limits than the transformer does: card 1.5e-5 / 9.1e-4 /
+# 5.2e-5 / 2.4e-3, fault 3.4e-2 / 4.1e-2 / 1.2e-3 / 3.4e-2
+BIGRU_PARITY_LIMITS = {"loss_rel": 1e-3, "norm_rel": 5e-3,
+                       "grad_1_cos": 3e-4, "flip_share": 1e-2}
 
 
 class SmokeError(RuntimeError):
@@ -867,12 +923,13 @@ def phase_kernels(frames, lengths, dev) -> list[dict]:
     return rows
 
 
-def load_port(device: str, overrides: dict | None = None):
+def load_port(device: str, overrides: dict | None = None,
+              release: str = RELEASE):
     from lipreading_tpu_torch.io import load_assets, load_release_model
     from lipreading_tpu_torch.ops.detector import params_to_torch
     from lipreading_tpu_torch.ops.ert import model_to_torch
 
-    model, cfg = load_release_model(RELEASE, device=device,
+    model, cfg = load_release_model(release, device=device,
                                     overrides=overrides)
     det_np, ert_np = load_assets()
     return {"model": model, "cfg": cfg,
@@ -3387,6 +3444,534 @@ def phase_evaluate(rows):
     shutil.rmtree(DV_DIR, ignore_errors=True)
 
 
+
+# --- the bi-GRU family and the conv3d stem: the bigru_ctc and
+# transformer_hybrid_universal releases served and trained
+
+
+@contextlib.contextmanager
+def planted(module, name: str, fake):
+    """``module.name`` replaced by ``fake`` inside the block (a planted
+    fault)."""
+    real = getattr(module, name)
+    setattr(module, name, fake)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def valid_rel_err(got, want, lengths) -> float:
+    """rel_err over the valid frames of [B, T, ...] outputs (on the host)."""
+    import torch
+
+    lengths = torch.as_tensor(lengths).cpu()
+    mask = torch.arange(got.shape[1])[None, :] < lengths[:, None]
+    return rel_err(got.float().cpu()[mask], want.float().cpu()[mask])
+
+
+def torch_flip(x, lengths):
+    """[bigru]'s planted fault: the bi-GRU's backward direction reversed
+    over the padded T (``torch.flip``) instead of within each length."""
+    import torch
+
+    return torch.flip(x, [1])
+
+
+def symmetric_conv3d(x, w, b, strides=(1, 1, 1), dtype=None):
+    """[conv3d]'s planted fault: ``models.nn.conv3d`` with a symmetric pad
+    of k // 2 on every axis, where XLA's SAME pads the 5x5 stride-2
+    convolution 1 before and 2 after."""
+    import torch.nn.functional as F
+
+    from lipreading_tpu_torch.ops.roi import full_float32
+
+    if dtype is not None:
+        w, b = w.to(dtype), b.to(dtype)
+    pads = []
+    for k in (w.shape[2], w.shape[1], w.shape[0]):
+        pads += [k // 2, k // 2]
+    xc = F.pad(x.permute(0, 4, 1, 2, 3), pads)
+    with full_float32():
+        y = F.conv3d(xc, w.permute(4, 3, 0, 1, 2), stride=tuple(strides))
+    return y.permute(0, 2, 3, 4, 1) + b
+
+
+def path_wrappers() -> dict:
+    from lipreading_tpu_torch.ops.ctc import ctc_lattice_bwd, ctc_lattice_fwd
+    from lipreading_tpu_torch.ops.decode import ctc_greedy_ids
+    from lipreading_tpu_torch.ops.roi import sample_rois
+
+    return {"roi_sampler": sample_rois, "ctc_greedy": ctc_greedy_ids,
+            "ctc_lattice_fwd": ctc_lattice_fwd,
+            "ctc_lattice_bwd": ctc_lattice_bwd}
+
+
+def counted_call(wrappers: dict, fn):
+    """``fn()`` with the counts set to 0 just before and read just after ->
+    (its result, host ms, launches)."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset(wrappers.values())
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, (time.perf_counter() - t0) * 1e3,
+            {k: w.launches for k, w in wrappers.items()})
+
+
+def port_rois(port, frames):
+    """preprocess_clips on the port's device (the ERT)."""
+    import torch
+
+    from lipreading_tpu_torch.ops.preprocess import preprocess_clips
+
+    dev = next(port["model"].parameters()).device
+    with torch.inference_mode():
+        return preprocess_clips(port["det"], port["ert"],
+                                torch.as_tensor(frames, device=dev),
+                                port["cfg"].preprocess)
+
+
+def cascade_both(gpu, cpu, frames, lengths, wrappers, tag, **kw):
+    """transcribe_cascade (beam 8, LM 0.4) end to end from each device's
+    ROIs, counted on the card: transcripts and flags card vs CPU -> (card
+    transcripts, host ms)."""
+    import torch
+
+    from lipreading_tpu_torch.infer import transcribe_cascade
+
+    rois, cpu_rois = port_rois(gpu, frames), port_rois(cpu, frames)
+    lens = torch.as_tensor(lengths, device="cuda")
+    (texts, flags), ms, n = counted_call(wrappers, lambda: transcribe_cascade(
+        gpu["model"], gpu["cfg"], rois, lens, return_flags=True,
+        **CASCADE_KW, **kw))
+    check(n["ctc_greedy"] == 1 and n["ctc_lattice_fwd"] == 0
+          and n["ctc_lattice_bwd"] == 0,
+          f"{tag} cascade {kw}: launches {n}, want 1 greedy and no lattice")
+    cpu_texts, cpu_flags = transcribe_cascade(
+        cpu["model"], cpu["cfg"], cpu_rois, torch.as_tensor(lengths),
+        return_flags=True, **CASCADE_KW, **kw)
+    log(f"{tag} cascade {kw or 'default margins'}: {ms:.1f} ms host clock, "
+        f"{int(flags.sum())} of {len(texts)} clips rescored, launches {n}; "
+        f"CPU transcripts {'equal' if cpu_texts == texts else 'DIFFER'}, "
+        f"flags {'equal' if (cpu_flags == flags).all() else 'differ'}")
+    check(cpu_texts == texts, f"{tag} cascade {kw}: card {texts} != CPU "
+          f"{cpu_texts}")
+    return texts, ms
+
+
+def phase_bigru(frames, lengths, texts, rows):
+    """[bigru]: the bigru_ctc release on [path]'s clips (bucket 96, the
+    untracked ERT): greedy transcripts and the cascade (default margins and
+    margin=inf) card equal to CPU, launches counted; the encoder output
+    card against CPU from the same ROIs within a limit a planted fault
+    breaks; CER, the stages' host ms, one recurrence's device ops and
+    time, peak memory. Returns the card's and the CPU's port."""
+    import torch
+
+    from lipreading_tpu_torch.metrics import corpus_cer
+    from lipreading_tpu_torch.models import gru
+    from lipreading_tpu_torch.models.lipreader import (
+        _act_dtype,
+        ctc_logits,
+        encode,
+    )
+    from lipreading_tpu_torch.ops.decode import ctc_greedy_ids
+    from lipreading_tpu_torch.text import Vocab
+
+    t_phase = time.perf_counter()
+    wrappers = path_wrappers()
+    gpu = load_port("cuda", release=BIGRU_RELEASE)
+    cpu = load_port("cpu", release=BIGRU_RELEASE)
+    cfg, m = gpu["cfg"], gpu["cfg"].model
+    B, T = frames.shape[:2]
+    check(T == BIGRU_BUCKET, f"[bigru] clips padded to {T}, want "
+          f"{BIGRU_BUCKET}")
+    log(f"[bigru] release {BIGRU_RELEASE}: {m.frontend} stem "
+        f"{m.frontend_channels}, bi-GRU {m.gru_layers} x H {m.gru_hidden}, "
+        f"{cfg.decoder} head, {m.dtype}; {B} clips x {T} frames, lengths "
+        f"{lengths.tolist()}")
+    run_path(frames, lengths, gpu)                      # warm-up
+    (hyps, flags), ms, n = counted_call(
+        wrappers, lambda: run_path(frames, lengths, gpu))
+    path_launches(rows, "bigru", n)
+    log(f"[bigru] frames -> transcripts (transcribe_greedy): {ms:.1f} ms "
+        f"host clock ({B * T / ms * 1e3:.0f} padded frames/s), launches {n}")
+    check(n == {"roi_sampler": 1, "ctc_greedy": 1, "ctc_lattice_fwd": 0,
+                "ctc_lattice_bwd": 0}, f"[bigru] launches {n}, want one ROI "
+          "and one greedy launch a call")
+    torch.cuda.reset_peak_memory_stats()
+    run_path(frames, lengths, gpu)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    cer = corpus_cer(hyps, texts)
+    for h, t, f in zip(hyps, texts, flags):
+        log(f"[bigru]   {h!r:32} ref {t!r:32} margin flag {bool(f)}")
+    t0 = time.perf_counter()
+    cpu_hyps, cpu_flags = run_path(frames, lengths, cpu)
+    log(f"[bigru] corpus CER {cer:.4f}; peak memory {peak:.1f} MiB; CPU run "
+        f"({time.perf_counter() - t0:.1f} s): transcripts "
+        f"{'equal' if cpu_hyps == hyps else 'DIFFER'}, margin flags "
+        f"{'equal' if (cpu_flags == flags).all() else 'differ'}")
+    check(cpu_hyps == hyps, f"[bigru] card {hyps} != CPU {cpu_hyps}")
+    for kw in ({}, {"margin": float("inf")}):
+        cascade_both(gpu, cpu, frames, lengths, wrappers, "[bigru]", **kw)
+
+    # the encoder output, card vs CPU from the card's ROIs, and the fault
+    dtype = _act_dtype(cfg)
+    rois = port_rois(gpu, frames)
+    lens = torch.as_tensor(lengths, device="cuda")
+    with torch.inference_mode():
+        enc = encode(gpu["model"], cfg, rois, lens, dtype)
+        enc_cpu = encode(cpu["model"], cfg, rois.cpu(),
+                         torch.as_tensor(lengths), dtype)
+        with planted(gru, "flip_sequences", torch_flip):
+            enc_fault = encode(gpu["model"], cfg, rois, lens, dtype)
+    card, fault = (valid_rel_err(e, enc_cpu, lengths)
+                   for e in (enc, enc_fault))
+    log(f"[bigru] encoder output [B, T, {enc.shape[-1]}] {enc.dtype}, card vs "
+        f"CPU rel_err over valid frames {card:.4g}, limit "
+        f"{BIGRU_ENC_LIMIT:g}, planted fault (backward direction by "
+        f"torch.flip) {fault:.4g}")
+    check(torch.isfinite(enc.float()).all().item(), "[bigru] enc not finite")
+    check(card <= BIGRU_ENC_LIMIT, f"[bigru] encoder card vs CPU {card} > "
+          f"{BIGRU_ENC_LIMIT}")
+    check(fault > BIGRU_ENC_LIMIT, f"[bigru] the planted fault's {fault} is "
+          f"within the limit {BIGRU_ENC_LIMIT}")
+
+    # where a call's time goes: the stem, the recurrence, head + greedy
+    model, blank = gpu["model"], Vocab().blank_id
+    st = {"stem": 0.0, "recurrence": 0.0, "head_greedy": 0.0}
+    with torch.inference_mode():
+        for i in range(4):          # the first pass warms up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            feats = model.frontend(rois, dtype)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            enc = model.encoder(feats, lens, dtype)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            lp = torch.log_softmax(ctc_logits(model, enc), -1)
+            ctc_greedy_ids(lp, lens.to(torch.int32), blank=blank)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            if i:
+                for k, a, b in (("stem", t0, t1), ("recurrence", t1, t2),
+                                ("head_greedy", t2, t3)):
+                    st[k] += (b - a) * 1e3 / 3
+        pr = beam_profile(lambda: (model.encoder(feats, lens, dtype), 0)[1])
+    total = sum(st.values())
+    log("[bigru] stages (host clock, synchronised, mean of 3): " + ", ".join(
+        f"{k} {v:.2f} ms ({100 * v / total:.1f} %)" for k, v in st.items()))
+    log(f"[bigru] one recurrence ({m.gru_layers} layers x 2 directions x "
+        f"{T} steps, B {B}) under torch.profiler: {pr['ops']} device ops, "
+        f"device busy {pr['device_ms']:.2f} ms of {pr['host_ms']:.1f} ms host "
+        f"(idle {100 * (1 - pr['device_ms'] / pr['host_ms']):.1f} %)")
+    log(f"[bigru] phase {time.perf_counter() - t_phase:.1f} s")
+    return gpu, cpu
+
+
+def phase_conv3d(frames, lengths, texts, gpu_patchify, rows):
+    """[conv3d]: the transformer_hybrid_universal release (conv3d stem) on
+    [path]'s clips at buckets 96 and 128: greedy and cascade transcripts
+    card equal to CPU, launches counted; the stem's output card against CPU
+    from the same ROIs within a limit a planted fault (a symmetric pad)
+    breaks; the stem's ms beside the patchify stem's."""
+    import numpy as np
+    import torch
+
+    from lipreading_tpu_torch.metrics import corpus_cer
+    from lipreading_tpu_torch.models import nn as lnn
+    from lipreading_tpu_torch.models.lipreader import _act_dtype
+
+    t_phase = time.perf_counter()
+    wrappers = path_wrappers()
+    gpu = load_port("cuda", release=CONV3D_RELEASE)
+    cpu = load_port("cpu", release=CONV3D_RELEASE)
+    m = gpu["cfg"].model
+    log(f"[conv3d] release {CONV3D_RELEASE}: {m.frontend} stem "
+        f"{m.frontend_channels}, framewise_norm {m.framewise_norm}, "
+        f"transformer {m.tf_layers} x {m.tf_dim}, {gpu['cfg'].decoder}, "
+        f"{m.dtype}")
+    B, T = frames.shape[:2]
+    for bucket in CONV3D_BUCKETS:
+        fr = np.zeros((B, bucket) + frames.shape[2:], np.uint8)
+        fr[:, :T] = frames
+        run_path(fr, lengths, gpu)                      # warm-up
+        (hyps, _), ms, n = counted_call(wrappers,
+                                        lambda: run_path(fr, lengths, gpu))
+        path_launches(rows, f"conv3d_{bucket}", n)
+        cpu_hyps, _ = run_path(fr, lengths, cpu)
+        log(f"[conv3d] bucket {bucket}: greedy {ms:.1f} ms host clock, "
+            f"launches {n}, CER {corpus_cer(hyps, texts):.4f}, CPU "
+            f"transcripts {'equal' if cpu_hyps == hyps else 'DIFFER'}")
+        check(n["roi_sampler"] == 1 and n["ctc_greedy"] == 1,
+              f"[conv3d] bucket {bucket}: launches {n}")
+        check(cpu_hyps == hyps, f"[conv3d] bucket {bucket}: card {hyps} != "
+              f"CPU {cpu_hyps}")
+        margins = ({}, {"margin": float("inf")}) if bucket == 96 else ({},)
+        for kw in margins:
+            casc, _ = cascade_both(gpu, cpu, fr, lengths, wrappers,
+                                   f"[conv3d] bucket {bucket}", **kw)
+        log(f"[conv3d] bucket {bucket}: cascade CER "
+            f"{corpus_cer(casc, texts):.4f}")
+        for h, t in zip(hyps, texts):
+            log(f"[conv3d]   {h!r:32} ref {t!r}")
+
+    # the stem card vs CPU from the card's ROIs (bucket 96), and the fault
+    dtype = _act_dtype(gpu["cfg"])
+    rois = port_rois(gpu, frames)
+    with torch.inference_mode():
+        feats = gpu["model"].frontend(rois, dtype)
+        feats_cpu = cpu["model"].frontend(rois.cpu(), dtype)
+        with planted(lnn, "conv3d", symmetric_conv3d):
+            feats_fault = gpu["model"].frontend(rois, dtype)
+        card, fault = (valid_rel_err(f, feats_cpu, lengths)
+                       for f in (feats, feats_fault))
+        stem_ms = time_ms(lambda: gpu["model"].frontend(rois, dtype), 20)
+        patch_ms = time_ms(lambda: gpu_patchify["model"].frontend(rois, dtype),
+                           20)
+    log(f"[conv3d] stem output [B, T, {feats.shape[-1]}] {feats.dtype}: card "
+        f"vs CPU rel_err over valid frames {card:.4g}, limit "
+        f"{CONV3D_STEM_LIMIT:g}, planted fault (symmetric pad of the 5x5 "
+        f"stride-2 convolution) {fault:.4g}")
+    log(f"[conv3d] stem {stem_ms:.3f} ms beside [path]'s patchify stem "
+        f"{patch_ms:.3f} ms (CUDA events, B {B} x T {T}, mean of 20)")
+    check(card <= CONV3D_STEM_LIMIT, f"[conv3d] stem card vs CPU {card} > "
+          f"{CONV3D_STEM_LIMIT}")
+    check(fault > CONV3D_STEM_LIMIT, f"[conv3d] the planted fault's {fault} "
+          f"is within the limit {CONV3D_STEM_LIMIT}")
+    log(f"[conv3d] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_serve_bigru(rows):
+    """[serve-bigru]: ``serve_batch`` of one steady batch of 16 rendered
+    clips (bucket 96, beam 8, LM 0.4) with release=bigru_ctc and the
+    default tracked conv preprocessing: every result present, the stage
+    split, launches, the first 4 clips equal to the CPU's."""
+    import numpy as np
+    import torch
+
+    from lipreading_tpu_torch.data.pipeline import _render_frames
+    from lipreading_tpu_torch.fixtures import clip_text
+    from lipreading_tpu_torch.metrics import corpus_cer
+    from lipreading_tpu_torch.serve import StageClock, load_server, serve_batch
+
+    t_phase = time.perf_counter()
+    wrappers = path_wrappers()
+    B, bucket = SERVE_KW["B"], SERVE_KW["bucket"]
+    frames = np.zeros((B, bucket, 160, 160, 3), np.uint8)
+    lens = np.zeros((B,), np.int32)
+    for i in range(B):
+        f = _render_frames((100 + i, bucket))
+        frames[i, :len(f)] = f
+        lens[i] = len(f)
+    refs = [clip_text(100 + i) for i in range(B)]
+    srv = load_server(release=BIGRU_RELEASE, device="cuda")
+    fr, ln = (torch.as_tensor(x, device="cuda") for x in (frames, lens))
+    kw = {k: SERVE_KW[k] for k in ("beam", "lm_weight")}
+    with torch.inference_mode():
+        serve_batch(srv, fr, ln, **kw)                  # the first batch
+        clock = StageClock(torch.device("cuda"))
+        (out, ms, n) = counted_call(wrappers, lambda: serve_batch(
+            srv, fr, ln, mark=clock.mark, **kw))
+    texts, flags, segmented = out
+    path_launches(rows, "serve-bigru", n)
+    log(f"[serve-bigru] one steady batch of {B} clips x {bucket} frames, "
+        f"release {BIGRU_RELEASE}, tracked conv preprocessing: {ms:.1f} ms "
+        f"host clock ({int(lens.sum()) / ms * 1e3:.0f} real frames/s); "
+        "stages " + ", ".join(f"{k} {v:.2f} ms" for k, v in clock.ms.items())
+        + f"; {int(np.sum(flags))} rescored, {int(np.sum(segmented))} "
+        f"segmented; launches {n}; CER {corpus_cer(texts, refs):.4f}")
+    check(len(texts) == B and all(isinstance(t, str) for t in texts),
+          "[serve-bigru] results missing")
+    check(n["roi_sampler"] == 2 and n["ctc_greedy"] >= 1
+          and n["ctc_lattice_fwd"] == 0,
+          f"[serve-bigru] launches {n}, want 2 ROI launches (face crop and "
+          "mouth) and a greedy launch a cascade call")
+    k = SERVE_CPU_CLIPS
+    cpu_srv = load_server(release=BIGRU_RELEASE, device="cpu")
+    t0 = time.perf_counter()
+    cpu_texts, _, _ = serve_batch(cpu_srv, torch.as_tensor(frames[:k]),
+                                  torch.as_tensor(lens[:k]), **kw)
+    log(f"[serve-bigru] first {k} clips on the CPU "
+        f"({time.perf_counter() - t0:.1f} s): "
+        f"{'equal' if cpu_texts == texts[:k] else 'DIFFER'}")
+    check(cpu_texts == texts[:k], f"[serve-bigru] card {texts[:k]} != CPU "
+          f"{cpu_texts}")
+    log(f"[serve-bigru] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_train_bigru(gpu, cpu, rows):
+    """[train-bigru]: FusedTrainer from the bigru_ctc release (batch 8,
+    buckets 32-128, the release's training config): finite losses, one ROI
+    and one launch of each CTC kernel a step, the stages; a fixed batch's
+    loss falls from the seeded initialisation; one bf16 step card vs CPU
+    within [parity]'s kind of limits that lengths one short break; one
+    float32 hybrid step (the Bahdanau decoder) whose teacher-forced logits
+    card vs CPU stay within a limit the attention mask off breaks; one step
+    at teacher_forcing 0.5."""
+    import dataclasses
+
+    import torch
+
+    from lipreading_tpu_torch.config import preset
+    from lipreading_tpu_torch.data.pipeline import (
+        FixtureVideoDataset,
+        VideoBatchIterator,
+        video_batch_to_device,
+    )
+    from lipreading_tpu_torch.io import load_release
+    from lipreading_tpu_torch.models import attention
+    from lipreading_tpu_torch.models.lipreader import (
+        attention_logits,
+        encode,
+    )
+
+    t_phase = time.perf_counter()
+    wrappers = path_wrappers()
+    wd = TRAIN_DIR + "_bigru"
+    tree, cfg = load_release(BIGRU_RELEASE)
+    cfg = cfg.override(**{"data.batch_size": 8})
+    ds = FixtureVideoDataset(TRAIN_CLIPS, seed=1, cfg=cfg.data)
+    it = VideoBatchIterator(ds, cfg.data.batch_size, seed=cfg.train.seed)
+    shutil.rmtree(wd, ignore_errors=True)
+    tr = make_trainer(cfg, tree, gpu, "cuda", wd)
+    tr.train_step(next(it))                             # warm-up
+    losses, step_ms = [], []
+    reset(wrappers.values())
+    for _ in range(BIGRU_TRAIN_STEPS):
+        batch = next(it)
+        mtr, ms, _ = counted_call({}, lambda: tr.train_step(batch))
+        step_ms.append(ms)
+        losses.append({k: float(v) for k, v in mtr.items()})
+        log(f"[train-bigru]   batch {tuple(batch.frames.shape[:2])}: loss "
+            f"{losses[-1]['loss']:.4f} grad_norm "
+            f"{losses[-1]['grad_norm']:.3f} ({ms:.1f} ms)")
+    n = {k: w.launches for k, w in wrappers.items()}
+    path_launches(rows, "train-bigru", n)
+    log(f"[train-bigru] {BIGRU_TRAIN_STEPS} steps from {BIGRU_RELEASE} "
+        f"(dropout {cfg.model.dropout}, {cfg.model.dtype}, batch "
+        f"{cfg.data.batch_size}): {sum(step_ms) / len(step_ms):.1f} ms per "
+        f"step (host clock, synchronised); launches {n}")
+    for mt in losses:
+        check(all(v == v and abs(v) != float("inf") for v in mt.values()),
+              f"[train-bigru] non-finite step metrics {mt}")
+    check(n == {"roi_sampler": BIGRU_TRAIN_STEPS, "ctc_greedy": 0,
+                "ctc_lattice_fwd": BIGRU_TRAIN_STEPS,
+                "ctc_lattice_bwd": BIGRU_TRAIN_STEPS},
+          f"[train-bigru] launches {n}, want one ROI and one of each CTC "
+          "kernel a step")
+    stages = {}
+    for _ in range(STAGE_STEPS):
+        tr.train_step(next(it), stage_ms=stages)
+    log(f"[train-bigru] stages (mean of {STAGE_STEPS} steps, host clock, "
+        "synchronised): " + ", ".join(f"{k} {v / STAGE_STEPS:.2f} ms"
+                                      for k, v in stages.items()))
+    del tr
+
+    # a fixed batch from the seeded initialisation: its loss falls
+    cfg_fix = cfg.override(**{"train.warmup_steps": 0})
+    tr = make_trainer(cfg_fix, None, gpu, "cuda", wd)
+    batch = ds.batch(list(range(cfg.data.batch_size)),
+                     max(cfg.data.time_buckets))
+    before = det_loss(tr, batch)
+    for _ in range(FIXED_STEPS):
+        tr.train_step(batch)
+    after = det_loss(tr, batch)
+    log(f"[train-bigru] fixed batch {tuple(batch.frames.shape[:2])} from the "
+        f"seeded initialisation: loss without dropout {before:.4f} -> "
+        f"{after:.4f} after {FIXED_STEPS} steps")
+    check(after < before, f"[train-bigru] fixed-batch loss did not fall: "
+          f"{before} -> {after}")
+    del tr
+
+    # one bf16 step card vs CPU, and the planted fault
+    over = {"model.dropout": 0.0, "train.roi_augment": 0.0,
+            "train.warmup_steps": 0}
+    cfg_p = cfg.override(**over)
+    pair = FixtureVideoDataset(1, seed=2, cfg=cfg.data).batch([0, 1], 32)
+    short = pair.frame_lengths.copy()
+    short[-1] -= 1
+    faulty = dataclasses.replace(pair, frame_lengths=short)
+    out = {name: step_record(cfg_p, b, dev, device, "bigru_" + name)
+           for name, b, dev, device in (("card", pair, gpu, "cuda"),
+                                        ("card_fault", faulty, gpu, "cuda"),
+                                        ("cpu", pair, cpu, "cpu"))}
+    lr = cfg_p.train.learning_rate
+    read = {k: parity_readings(out[k], out["cpu"], lr)
+            for k in ("card", "card_fault")}
+    for k, lim in BIGRU_PARITY_LIMITS.items():
+        log(f"[train-bigru]   bf16 step {k}: card vs cpu "
+            f"{read['card'][k]:.4g}, limit {lim:g}, planted fault (a length "
+            f"one short) {read['card_fault'][k]:.4g}")
+    for k, lim in BIGRU_PARITY_LIMITS.items():
+        check(read["card"][k] <= lim, f"[train-bigru] step card vs CPU {k} "
+              f"{read['card'][k]} > {lim}")
+        check(read["card_fault"][k] > lim, f"[train-bigru] the planted "
+              f"fault's {k} {read['card_fault'][k]} is within {lim}")
+
+    # float32 hybrid (the Bahdanau decoder) from a seeded init: teacher-
+    # forced logits card vs CPU from the card's ROIs, then one step
+    cfg_h = preset("bigru-ctc").override(**{
+        "decoder": "hybrid", "train.ctc_weight": 0.5, "train.att_weight": 0.5,
+        "model.dtype": "float32", "model.dropout": 0.0,
+        "train.warmup_steps": 0})
+    trs = {d: make_trainer(cfg_h, None, port, d, wd + "_" + d)
+           for d, port in (("cuda", gpu), ("cpu", cpu))}
+    with torch.no_grad():
+        mb = trs["cuda"].model_batch(video_batch_to_device(pair, "cuda"))
+
+        def logits(device):
+            b = {k: v.to(device) for k, v in mb.items()}
+            model = trs[device].model
+            enc = encode(model, cfg_h, b["rois"], b["frame_lengths"])
+            return attention_logits(model, cfg_h, enc, b["frame_lengths"],
+                                    b["targets"])
+
+        card, cpu_l = logits("cuda"), logits("cpu")
+
+        def no_mask(lengths, max_len):
+            return torch.ones(lengths.shape[0], max_len, dtype=torch.bool,
+                              device=lengths.device)
+
+        with planted(attention, "length_mask", no_mask):
+            fault = logits("cuda")
+    r_card, r_fault = rel_err(card.cpu(), cpu_l), rel_err(fault.cpu(), cpu_l)
+    mh = trs["cuda"].train_step(pair)
+    log(f"[train-bigru] float32 bigru-ctc decoder=hybrid from the seeded "
+        f"initialisation: teacher-forced logits {tuple(card.shape)} card vs "
+        f"CPU rel_err {r_card:.4g}, limit {BIGRU_LOGITS_LIMIT:g}, planted "
+        f"fault (attention mask off) {r_fault:.4g}; one step: loss "
+        f"{float(mh['loss']):.4f} (ctc {float(mh['ctc_loss']):.4f}, att "
+        f"{float(mh['att_loss']):.4f})")
+    check(r_card <= BIGRU_LOGITS_LIMIT, f"[train-bigru] logits card vs CPU "
+          f"{r_card} > {BIGRU_LOGITS_LIMIT}")
+    check(r_fault > BIGRU_LOGITS_LIMIT, f"[train-bigru] the planted fault's "
+          f"{r_fault} is within {BIGRU_LOGITS_LIMIT}")
+    check(all(float(v) == float(v) for v in mh.values()),
+          f"[train-bigru] hybrid step metrics {mh}")
+    del trs
+
+    # scheduled sampling: the coins from the step's generator
+    cfg_ss = preset("bigru-ctc").override(**{
+        "decoder": "hybrid", "train.ctc_weight": 0.5, "train.att_weight": 0.5,
+        "train.teacher_forcing": 0.5})
+    tr = make_trainer(cfg_ss, None, gpu, "cuda", wd + "_ss")
+    mss, ms, _ = counted_call({}, lambda: tr.train_step(pair))
+    log(f"[train-bigru] teacher_forcing 0.5 ({cfg_ss.model.dtype}, dropout "
+        f"{cfg_ss.model.dropout}): one step, loss {float(mss['loss']):.4f} "
+        f"(att {float(mss['att_loss']):.4f}), {ms:.1f} ms")
+    check(all(float(v) == float(v) and abs(float(v)) != float("inf")
+              for v in mss.values()), f"[train-bigru] step metrics {mss}")
+    del tr
+    for d in ("", "_cuda", "_cpu", "_ss"):
+        shutil.rmtree(wd + d, ignore_errors=True)
+    log(f"[train-bigru] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     t_start = time.perf_counter()
@@ -3440,6 +4025,11 @@ def main() -> int:
         phase_train_tracked(rows)
         phase_remat(gpu, long, rows)
         phase_evaluate(rows)
+        gpu_b, cpu_b = phase_bigru(frames, lengths, texts, rows)
+        phase_conv3d(frames, lengths, texts, gpu, rows)
+        phase_serve_bigru(rows)
+        phase_train_bigru(gpu_b, cpu_b, rows)
+        del gpu_b, cpu_b
     except Exception as e:  # every phase failure ends here, without a result
         import traceback
 

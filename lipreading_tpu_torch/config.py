@@ -1,9 +1,10 @@
 """Configuration dataclasses of the lip-reading system.
 
-A copy of the fields of ``lipreading_tpu/config.py`` that this package reads,
-so that a release's ``.json`` sidecar loads unchanged through ``from_dict``.
-The mesh section of a release config is ignored: this package runs on one
-device.
+A copy of the fields of ``lipreading_tpu/config.py``, so that a release's
+``.json`` sidecar loads unchanged through ``from_dict`` and a config written
+here (a training workdir's, an exported release's) reads the same in the
+JAX package. The mesh section is carried and never read: this package runs
+on one device.
 """
 
 from __future__ import annotations
@@ -49,8 +50,8 @@ class DataConfig:
 
 @dataclass
 class ModelConfig:
-    # visual stem: "patchify" (tubelet embed, ported) or "conv3d" (the
-    # Conv3d stack, a later slice of the port)
+    # visual stem: "patchify" (tubelet embed) or "conv3d" (the Conv3d
+    # stack of the reference, the releases' bi-GRU and transformer_hybrid*)
     frontend: str = "conv3d"
     frontend_channels: tuple[int, ...] = (32, 64, 96)
     frontend_dim: int = 256       # feature dim fed to the encoder
@@ -105,12 +106,26 @@ class TrainConfig:
 
 
 @dataclass
+class MeshConfig:
+    """The JAX package's device mesh; carried, never read here."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_parallel: int = -1
+    model_parallel: int = 1
+    sequence_parallel: bool = False
+    pipeline_parallel: bool = False
+    pipeline_microbatches: int = 0
+
+
+@dataclass
 class Config:
     name: str = "default"
     data: DataConfig = field(default_factory=DataConfig)
     preprocess: PreprocessConfig = field(default_factory=PreprocessConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     encoder: str = "bigru"        # "bigru" | "transformer"
     decoder: str = "ctc"          # "ctc" | "attention" | "hybrid"
 
@@ -176,10 +191,24 @@ def parse_overrides(argv: list[str]) -> dict[str, str]:
 
 
 def preset(name: str) -> Config:
-    """A named configuration of the JAX package's ``preset``. Only the
-    patchify + transformer family is ported; the other presets (conv3d stem,
-    bi-GRU) are later slices."""
+    """A named configuration of the JAX package's ``preset``. Its
+    ``oracle-single-clip`` and ``preprocess-batched`` build no model of
+    their own (they are the default config under another name), and
+    ``dp-v5e8`` is data-parallel training over 8 devices; none of the
+    three is here."""
     presets = {
+        # conv3d stem, 2-layer bi-GRU, CTC head: the JAX package's default
+        # model (the bigru_ctc release)
+        "bigru-ctc": Config(name="bigru-ctc", encoder="bigru",
+                            decoder="ctc"),
+        # conv3d stem, transformer encoder and decoder, hybrid loss (the
+        # transformer_hybrid* releases)
+        "transformer-attn": Config(
+            name="transformer-attn",
+            encoder="transformer",
+            decoder="hybrid",
+            train=TrainConfig(ctc_weight=0.3, att_weight=0.7),
+        ),
         # the flagship training configuration: patchify stem, transformer
         # encoder, hybrid CTC/attention loss
         "transformer-patchify": Config(
@@ -191,8 +220,7 @@ def preset(name: str) -> Config:
         ),
     }
     if name not in presets:
-        raise KeyError(f"unknown or not yet ported preset {name!r}; have "
-                       f"{sorted(presets)}")
+        raise KeyError(f"unknown preset {name!r}; have {sorted(presets)}")
     return presets[name]
 
 
@@ -218,6 +246,7 @@ def from_dict(d: dict) -> Config:
         preprocess=build(PreprocessConfig, d.get("preprocess", {})),
         model=build(ModelConfig, d.get("model", {})),
         train=build(TrainConfig, d.get("train", {})),
+        mesh=build(MeshConfig, d.get("mesh", {})),
         encoder=d.get("encoder", "bigru"),
         decoder=d.get("decoder", "ctc"),
     )

@@ -18,9 +18,10 @@ bucket (one batch where the model's norms are framewise), else each clip
 alone through ``transcribe`` at ``beam``. ``decode=ctc`` decodes a hybrid
 model through its CTC head (greedy at ``beam=1``, the CTC prefix beam
 above). ``dataview=`` evaluates a clip-level split of a cached dataview in
-batches of 8. The JAX script's defaults name the bi-GRU family, which the
-port does not have; this one defaults to the ported flagship. It runs on
-the GPU unless ``device=cpu`` is given.
+batches of 8. Any family loads: ``preset=bigru-ctc release=bigru_ctc`` are
+the JAX script's defaults; this one keeps ``transformer-patchify`` and
+``transformer_hybrid_universal4``. It runs on the GPU unless ``device=cpu``
+is given.
 """
 
 from __future__ import annotations

@@ -1,9 +1,10 @@
 """Analytic FLOP counts and MFU (counterpart of ``lipreading_tpu/flops.py``).
 
 Counts multiply-accumulate work (2 FLOPs per MAC) of every matrix product
-and convolution of the model (the patchify + transformer family, the one
-the port runs); elementwise, normalisation and softmax work
-is left out, as in the JAX package. ``train_step_flops`` is 3x the forward.
+and convolution of the model, for every family (either stem, the
+transformer or bi-GRU encoder, the CTC head and either attention decoder);
+elementwise, normalisation and softmax work is left out, as in the JAX
+package. ``train_step_flops`` is 3x the forward.
 
 ``device_peak_flops`` is NVIDIA's published dense peak of the current card
 for the compute type: the H100 SXM (989 TFLOP/s bf16, 67 TFLOP/s float32
@@ -61,16 +62,36 @@ def conv3d_flops(t: int, h: int, w: int, kernel, cin: int, cout: int,
 
 
 def frontend_flops(cfg: Config, T: int) -> float:
-    """Per-sample forward FLOPs of the patchify stem over T frames."""
+    """Per-sample forward FLOPs of the visual stem over T frames."""
     m = cfg.model
     R = cfg.preprocess.roi_size                       # 96
-    P, ps = m.patch_dim, m.patch_size
-    g = R // ps                                        # 12
-    f = _dense(T * g * g, 3 * ps * ps, P)              # tubelet embed
-    f += conv3d_flops(T, g // 2, g // 2, (3, 3, 3), P, P)     # 6x6
-    f += conv3d_flops(T, g // 4, g // 4, (3, 3, 3), P, P)     # 3x3
-    f += _dense(T, P * (g // 4) ** 2, m.frontend_dim)
+    if m.frontend == "patchify":
+        P, ps = m.patch_dim, m.patch_size
+        g = R // ps                                    # 12
+        f = _dense(T * g * g, 3 * ps * ps, P)          # tubelet embed
+        f += conv3d_flops(T, g // 2, g // 2, (3, 3, 3), P, P)     # 6x6
+        f += conv3d_flops(T, g // 4, g // 4, (3, 3, 3), P, P)     # 3x3
+        f += _dense(T, P * (g // 4) ** 2, m.frontend_dim)
+    else:
+        c0, c1, c2 = m.frontend_channels
+        f = conv3d_flops(T, R, R, (3, 5, 5), 1, c0, (1, 2, 2))    # -> 48
+        f += conv3d_flops(T, R // 4, R // 4, (3, 5, 5), c0, c1)   # 24
+        f += conv3d_flops(T, R // 8, R // 8, (3, 3, 3), c1, c2)   # 12
+        f += _dense(T, c2 * 6 * 6, m.frontend_dim)
     f += m.highway_layers * 2 * _dense(T, m.frontend_dim, m.frontend_dim)
+    return f
+
+
+def bigru_flops(cfg: Config, T: int) -> float:
+    """Both directions of every bi-GRU layer: the input projection and the
+    recurrence."""
+    m = cfg.model
+    H = m.gru_hidden
+    f = 0.0
+    d = m.frontend_dim
+    for _ in range(m.gru_layers):
+        f += 2 * (_dense(T, d, 3 * H) + _dense(T, H, 3 * H))
+        d = 2 * H
     return f
 
 
@@ -98,14 +119,41 @@ def transformer_decoder_flops(cfg: Config, T: int, L: int) -> float:
     return m.tf_dec_layers * per_layer + _dense(L, D, m.vocab_size)
 
 
-def model_fwd_flops(cfg: Config, T: int, L: int) -> float:
-    """Per-sample forward FLOPs of the patchify + transformer model, loss
-    heads included (the conv3d stem and the bi-GRU family are not ported)."""
+def attn_gru_decoder_flops(cfg: Config, T: int, L: int) -> float:
+    """The Bahdanau GRU decoder, teacher-forced over L steps."""
     m = cfg.model
-    f = frontend_flops(cfg, T) + transformer_encoder_flops(cfg, T)
-    f += _dense(T, m.tf_dim, m.vocab_size)                # CTC head
-    if cfg.decoder == "hybrid":
-        f += transformer_decoder_flops(cfg, T, L)
+    H, A, V = m.decoder_hidden, m.attn_dim, m.vocab_size
+    enc = 2 * m.gru_hidden
+    f = _dense(T, enc, A)                                  # enc projection
+    per_step = (
+        _dense(1, H, A) + _dense(T, A, 1) + 2.0 * T * enc  # attend + ctx
+        + _dense(1, H + enc, 3 * H) + _dense(1, H, 3 * H)  # gru cell
+        + _dense(1, H + enc, V)
+    )
+    return f + L * per_step
+
+
+def ctc_head_flops(cfg: Config, T: int) -> float:
+    m = cfg.model
+    enc = 2 * m.gru_hidden if cfg.encoder == "bigru" else m.tf_dim
+    return _dense(T, enc, m.vocab_size)
+
+
+def model_fwd_flops(cfg: Config, T: int, L: int) -> float:
+    """Per-sample forward FLOPs of the configured model, loss heads
+    included."""
+    f = frontend_flops(cfg, T)
+    if cfg.encoder == "bigru":
+        f += bigru_flops(cfg, T)
+    else:
+        f += transformer_encoder_flops(cfg, T)
+    if cfg.decoder in ("ctc", "hybrid"):
+        f += ctc_head_flops(cfg, T)
+    if cfg.decoder in ("attention", "hybrid"):
+        if cfg.encoder == "bigru":
+            f += attn_gru_decoder_flops(cfg, T, L)
+        else:
+            f += transformer_decoder_flops(cfg, T, L)
     return f
 
 

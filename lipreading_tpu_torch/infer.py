@@ -37,6 +37,7 @@ from lipreading_tpu_torch.fixtures import LEXICON
 from lipreading_tpu_torch.io import ASSETS_DIR
 from lipreading_tpu_torch.lexicon import fixture_lexicon, to_torch
 from lipreading_tpu_torch.lm import load_lm, lm_nll_per_char
+from lipreading_tpu_torch.models import attention
 from lipreading_tpu_torch.models import transformer as tf
 from lipreading_tpu_torch.models.lipreader import (
     LipReader,
@@ -60,16 +61,30 @@ from lipreading_tpu_torch.text import Vocab
 
 def _attention_step_fn(model: LipReader, cfg: Config, enc: torch.Tensor,
                        enc_lengths: torch.Tensor, dtype):
-    """(initial KV cache, step_fn) of the transformer attention decoder.
+    """(initial state, step_fn) of the model's attention decoder.
 
-    The cache rides the activation type: ``decoder_step`` computes K/V in
-    it and casts cache reads back to it, so a float32 cache under bf16
-    activations would only hold exact bf16 values at twice the bytes. The
-    cross-attention K/V are computed once here; they are constant across
-    steps and identical across the beams of a sample (enc is tiled by
-    repeat), so the step closes over them and the beams never gather
-    them."""
+    The Bahdanau decoder's state is ``{"h": [B, H]}`` in the encoder's type;
+    its encoder-side projection and mask are computed once here. The
+    transformer decoder's state is its KV cache, which rides the activation
+    type: ``decoder_step`` computes K/V in it and casts cache reads back to
+    it, so a float32 cache under bf16 activations would only hold exact
+    bf16 values at twice the bytes. The cross-attention K/V are computed
+    once here; they are constant across steps and identical across the
+    beams of a sample (enc is tiled by repeat), so the step closes over them
+    and the beams never gather them."""
     p = model.att_decoder
+    if cfg.encoder == "bigru":
+        enc_proj = attention.precompute_attention(p, enc, dtype)
+        enc_mask = length_mask(enc_lengths, enc.shape[1])
+        state = {"h": torch.zeros(enc.shape[0], p.gru.w_hh.shape[0],
+                                  dtype=enc.dtype, device=enc.device)}
+
+        def gru_step(state, tok):
+            h, logits = attention.decoder_step(p, state["h"], tok, enc,
+                                               enc_proj, enc_mask, dtype)
+            return {"h": h}, logits
+
+        return state, gru_step
     heads = cfg.model.tf_heads
     cache = tf.decoder_init_cache(p, enc.shape[0], cfg.train.max_decode_len,
                                   heads, dtype or torch.float32)

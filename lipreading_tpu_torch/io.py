@@ -325,20 +325,18 @@ def load_preprocessors(landmarker: str = "ert", variant: str = "default",
     return det_ops.params_to_torch(det_np, device), lmk, presence
 
 
-def from_jax_params(tree, cfg: Config) -> "OrderedDict[str, torch.Tensor]":
+def from_jax_params(tree, cfg: Config | None = None
+                    ) -> "OrderedDict[str, torch.Tensor]":
     """Numpy parameter tree -> ``LipReader(cfg).state_dict()``.
 
     The port's modules keep the JAX package's parameter names and layouts
     (dense ``w`` is [in, out], conv ``w`` is DHWIO), so a leaf's path joined
     with "." is its ``state_dict`` key. Lists (from ``init_model``) and
     dicts keyed "0", "1", ... (from a msgpack release) give the same keys.
-    Every leaf is kept, the attention decoder's included. Leaves may be
-    numpy arrays or anything ``np.asarray`` reads.
+    Every leaf is kept, the attention decoder's included, for every family
+    ``LipReader`` builds, so the tree alone decides the keys and ``cfg`` is
+    not read. Leaves may be numpy arrays or anything ``np.asarray`` reads.
     """
-    if cfg.encoder != "transformer" or cfg.model.frontend != "patchify":
-        raise NotImplementedError(
-            "only the patchify + transformer model family is ported; the "
-            "conv3d stem and the bi-GRU are a later slice")
     out: OrderedDict[str, torch.Tensor] = OrderedDict()
 
     def walk(node, prefix):

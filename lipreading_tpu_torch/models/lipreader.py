@@ -3,10 +3,18 @@
 ``cross_entropy_loss``, ``compute_loss`` and ``_act_dtype`` in
 ``lipreading_tpu/models/lipreader.py``).
 
-Ported so far: the patchify stem (with ``train.remat``, recomputed in the
-backward), the transformer encoder, the CTC head and the transformer
-attention decoder (``decoder="hybrid"``). The conv3d stem, the bi-GRU
-encoder and its Bahdanau decoder are later slices.
+Every family of the JAX package's ``init_model``:
+
+    frontend="patchify" | "conv3d"  the visual stem (``train.remat``
+                                    recomputes it in the backward)
+    encoder="transformer" | "bigru" the encoder
+    decoder="ctc"                   the CTC head
+    decoder="attention"             the attention decoder alone
+    decoder="hybrid"                both, loss ctc_weight * CTC +
+                                    att_weight * cross-entropy
+
+The attention decoder is the Bahdanau GRU decoder (``models/attention.py``)
+after the bi-GRU and the transformer decoder after the transformer.
 """
 
 from __future__ import annotations
@@ -18,7 +26,12 @@ from torch import nn
 
 from lipreading_tpu_torch.config import Config
 from lipreading_tpu_torch.models import nn as lnn
-from lipreading_tpu_torch.models.frontend3d import Patchify
+from lipreading_tpu_torch.models.attention import (
+    AttnDecoder,
+    teacher_forced_logits,
+)
+from lipreading_tpu_torch.models.frontend3d import Frontend3D, Patchify
+from lipreading_tpu_torch.models.gru import BiGRU, GRUCell
 from lipreading_tpu_torch.models.nn import Dense, length_mask
 from lipreading_tpu_torch.models.transformer import (
     TransformerDecoder,
@@ -33,37 +46,43 @@ def _act_dtype(cfg: Config) -> torch.dtype:
 
 
 class LipReader(nn.Module):
-    """Patchify stem -> transformer encoder -> CTC head (and, for
-    ``decoder="hybrid"``, the transformer attention decoder)."""
+    """Stem -> encoder -> CTC head and/or attention decoder, as ``cfg``
+    names them (the module doc)."""
 
     def __init__(self, cfg: Config):
         super().__init__()
         m = cfg.model
-        if m.frontend != "patchify":
-            raise NotImplementedError(
-                f"frontend {m.frontend!r}: the conv3d stem is a later slice")
-        if cfg.encoder != "transformer":
-            raise NotImplementedError(
-                f"encoder {cfg.encoder!r}: the bi-GRU is a later slice")
-        if cfg.decoder not in ("ctc", "hybrid"):
-            raise NotImplementedError(
-                f"decoder {cfg.decoder!r}: a model without the CTC head is a "
-                "later slice")
+        if m.frontend not in ("patchify", "conv3d"):
+            raise ValueError(f"unknown frontend {m.frontend!r}")
+        if cfg.decoder not in ("ctc", "attention", "hybrid"):
+            raise ValueError(f"unknown decoder {cfg.decoder!r}")
         self.cfg = cfg
-        self.frontend = Patchify(m, cfg.preprocess.roi_size)
-        self.encoder = TransformerEncoder(m, m.frontend_dim)
-        self.ctc_head = Dense(m.tf_dim, m.vocab_size)
-        if cfg.decoder == "hybrid":
-            self.att_decoder = TransformerDecoder(m)
+        stem = Patchify if m.frontend == "patchify" else Frontend3D
+        self.frontend = stem(m, cfg.preprocess.roi_size)
+        if cfg.encoder == "bigru":
+            self.encoder = BiGRU(m.frontend_dim, m.gru_hidden, m.gru_layers)
+            enc_dim = 2 * m.gru_hidden
+        elif cfg.encoder == "transformer":
+            self.encoder = TransformerEncoder(m, m.frontend_dim)
+            enc_dim = m.tf_dim
+        else:
+            raise ValueError(f"unknown encoder {cfg.encoder!r}")
+        if cfg.decoder in ("ctc", "hybrid"):
+            self.ctc_head = Dense(enc_dim, m.vocab_size)
+        if cfg.decoder in ("attention", "hybrid"):
+            self.att_decoder = (AttnDecoder(m, enc_dim)
+                                if cfg.encoder == "bigru"
+                                else TransformerDecoder(m))
 
 
 @torch.no_grad()
 def init_params_(model: LipReader, gen: torch.Generator) -> LipReader:
     """Draw ``model``'s parameters in place with the JAX package's
-    distributions (``models/nn.py`` inits): dense and conv weights and biases
-    uniform in +-1/sqrt(fan_in), the highway gate bias shifted by -2,
-    embedding tables standard normal, norms at scale 1 and bias 0, ``pos``
-    the sinusoidal table. The values differ from ``jax.random``'s."""
+    distributions (``models/nn.py`` and ``models/gru.py`` inits): dense and
+    conv weights and biases uniform in +-1/sqrt(fan_in), GRU cells' in
+    +-1/sqrt(H), the highway gate bias shifted by -2, embedding tables
+    standard normal, norms at scale 1 and bias 0, ``pos`` the sinusoidal
+    table. The values differ from ``jax.random``'s."""
     dev = next(model.parameters()).device
 
     def uniform_(p, scale):
@@ -73,7 +92,12 @@ def init_params_(model: LipReader, gen: torch.Generator) -> LipReader:
         if isinstance(mod, Dense):
             scale = 1.0 / math.sqrt(mod.w.shape[0])
             uniform_(mod.w, scale)
-            uniform_(mod.b, scale)
+            if mod.b is not None:
+                uniform_(mod.b, scale)
+        elif isinstance(mod, GRUCell):
+            scale = 1.0 / math.sqrt(mod.w_hh.shape[0])
+            for p in (mod.w_ih, mod.w_hh, mod.b_ih, mod.b_hh):
+                uniform_(p, scale)
         elif isinstance(mod, lnn.Conv3d):
             scale = 1.0 / math.sqrt(math.prod(mod.w.shape[:-1]))
             uniform_(mod.w, scale)
@@ -126,16 +150,19 @@ def encode(model: LipReader, cfg: Config, rois: torch.Tensor,
            frame_lengths: torch.Tensor, dtype: torch.dtype | None = None,
            gen: torch.Generator | None = None):
     """[B, T, R, R] + lengths [B] -> [B, T, D] encoder states; ``gen``
-    enables dropout (training), None is deterministic. The encoder's
-    attention takes the flash kernels when ``cfg.model.flash_attention``
-    is set, with the backward ``cfg.model.flash_bwd``; ``cfg.train.remat``
-    recomputes the frontend in the backward."""
+    enables dropout (training), None is deterministic. The transformer
+    encoder's attention takes the flash kernels when
+    ``cfg.model.flash_attention`` is set, with the backward
+    ``cfg.model.flash_bwd``; ``cfg.train.remat`` recomputes the frontend in
+    the backward."""
     dtype = dtype or _act_dtype(cfg)
     rate = cfg.model.dropout
     if cfg.train.remat and torch.is_grad_enabled():
         feats = _frontend_remat(model, rois, dtype, gen, rate)
     else:
         feats = model.frontend(rois, dtype, gen, rate)
+    if cfg.encoder == "bigru":
+        return model.encoder(feats, frame_lengths, dtype, gen, rate)
     return model.encoder(feats, frame_lengths, dtype, gen, rate,
                          flash=cfg.model.flash_attention,
                          flash_bwd=cfg.model.flash_bwd)
@@ -151,8 +178,14 @@ def attention_logits(model: LipReader, cfg: Config, enc: torch.Tensor,
                      enc_lengths: torch.Tensor, targets: torch.Tensor,
                      dtype: torch.dtype | None = None,
                      gen: torch.Generator | None = None) -> torch.Tensor:
-    """Teacher-forced next-token logits [B, L-1, V] for targets [B, L]."""
+    """Teacher-forced next-token logits [B, L-1, V] for targets [B, L];
+    the Bahdanau decoder samples its own predictions at
+    ``cfg.train.teacher_forcing`` < 1 (with ``gen``)."""
     dtype = dtype or _act_dtype(cfg)
+    if cfg.encoder == "bigru":
+        return teacher_forced_logits(
+            model.att_decoder, enc, enc_lengths, targets, dtype,
+            cfg.train.teacher_forcing, gen)
     return model.att_decoder(targets[:, :-1], enc, enc_lengths, dtype, gen,
                              cfg.model.dropout)
 
@@ -174,7 +207,7 @@ def cross_entropy_loss(logits: torch.Tensor, targets_out: torch.Tensor,
 
 def compute_loss(model: LipReader, cfg: Config, batch: dict,
                  train: bool = True, gen: torch.Generator | None = None):
-    """The hybrid loss over a batch dict of tensors on the model's device:
+    """The model's loss over a batch dict of tensors on the model's device:
 
         rois           [B, T, R, R]  normalised float32
         frame_lengths  [B]
@@ -223,12 +256,13 @@ def compute_loss(model: LipReader, cfg: Config, batch: dict,
         w = t.ctc_weight if cfg.decoder == "hybrid" else 1.0
         loss = loss + w * lc
         metrics["ctc_loss"] = lc
-    if cfg.decoder == "hybrid":
+    if cfg.decoder in ("attention", "hybrid"):
         att = attention_logits(model, cfg, enc, lengths, batch["targets"],
                                gen=gen)
         la = cross_entropy_loss(att, batch["targets"][:, 1:],
                                 batch["target_lengths"], sample_weight=sw)
-        loss = loss + t.att_weight * la
+        w = t.att_weight if cfg.decoder == "hybrid" else 1.0
+        loss = loss + w * la
         metrics["att_loss"] = la
     metrics["loss"] = loss
     return loss, metrics

@@ -129,11 +129,26 @@ def length_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
             < lengths[:, None])
 
 
+def flip_sequences(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Reverse [B, T, ...] within each sample's length: position t reads
+    ``lengths - 1 - t``, clipped to [0, T - 1], so the positions past a
+    length read index 0 (the bi-GRU's backward direction; padded positions
+    equal the JAX package's)."""
+    B, T = x.shape[:2]
+    idx = (lengths.to(x.device).long()[:, None] - 1
+           - torch.arange(T, device=x.device)[None, :]).clamp(0, T - 1)
+    idx = idx.reshape(B, T, *([1] * (x.ndim - 2))).expand(x.shape)
+    return torch.gather(x, 1, idx)
+
+
 class Dense(nn.Module):
-    def __init__(self, in_dim: int, out_dim: int):
+    """``x @ w (+ b)``; ``bias=False`` holds no ``b`` (the Bahdanau
+    decoder's ``attn_enc`` and ``attn_v``)."""
+
+    def __init__(self, in_dim: int, out_dim: int, bias: bool = True):
         super().__init__()
         self.w = nn.Parameter(torch.zeros(in_dim, out_dim))
-        self.b = nn.Parameter(torch.zeros(out_dim))
+        self.b = nn.Parameter(torch.zeros(out_dim)) if bias else None
 
     def forward(self, x, dtype=None):
         return dense(x, self.w, self.b, dtype)
@@ -175,8 +190,8 @@ class Conv3d(nn.Module):
         self.w = nn.Parameter(torch.zeros(*kernel, cin, cout))
         self.b = nn.Parameter(torch.zeros(cout))
 
-    def forward(self, x, dtype=None):
-        return conv3d(x, self.w, self.b, dtype=dtype)
+    def forward(self, x, dtype=None, strides=(1, 1, 1)):
+        return conv3d(x, self.w, self.b, strides, dtype)
 
 
 class Highway(nn.Module):

@@ -33,6 +33,15 @@ of ``rescore_bucket`` up to B) and is then served for its results; latency
 is measured on the batches after it. Each of those prints its stage split
 (host clock, synchronised after each stage).
 
+``release`` is any release of ``assets/``: ``bigru_ctc`` (the conv3d stem
+and the bi-GRU; its cascade rescores with the CTC prefix beam and the LM),
+``transformer_hybrid``, ``transformer_hybrid_robust``,
+``transformer_hybrid_universal`` (the conv3d stem and the transformer),
+``transformer_hybrid_universal3`` or ``transformer_hybrid_universal4``
+(the default here and in ``scripts/serve.py``). The conv3d-stem releases
+pool their GroupNorm statistics over time, padded frames included, so a
+clip's transcript depends on the bucket it is padded to.
+
 ``source``: ``mp4`` writes the fixture clips ``make_clip(100 + i)`` as mp4
 files and decodes them in the workers (OpenCV), as the JAX server does;
 ``render`` renders the same clips in the workers, without a codec. The

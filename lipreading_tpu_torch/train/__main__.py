@@ -6,8 +6,17 @@
         [variation=0.0] [variation_max=] [assets_variant=] [resume=1] \\
         [device=cuda] [key=value ...]
 
+``preset`` is any preset of ``config.preset``: ``transformer-patchify``
+(the default here), ``transformer-attn`` (the conv3d stem with the
+transformer encoder and decoder) or ``bigru-ctc`` (the conv3d stem, the
+bi-GRU and the CTC head; ``scripts/train.py``'s default), with
+``init_from=bigru_ctc`` or ``init_from=transformer_hybrid_universal`` to
+start from that family's release. Any decoder trains (``decoder=attention``
+and ``decoder=hybrid`` give the bi-GRU the Bahdanau decoder).
+
 Two paths, each evaluating on held-out clips every ``train.eval_every``
-steps (the joint beam at ``train.beam_width``):
+steps (the joint beam at ``train.beam_width`` for a hybrid model, the
+model's own decoder otherwise):
 
 * ``fused=1`` (the default here; ``scripts/train.py`` defaults to
   ``fused=0``): raw uint8 fixture frames rendered from ``data_seed`` ->

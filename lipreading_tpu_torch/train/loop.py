@@ -5,7 +5,7 @@
 (``train.optim.AdamW``, optax's semantics), the step, checkpoints, the
 JSONL metrics and the held-out evaluation. Its step takes a dataview batch
 (``data.dataset.Batch``: uint8 ROIs, normalised on the device by
-``batch_to_device``) or a dict of normalised ROIs. One step: the hybrid
+``batch_to_device``) or a dict of normalised ROIs. One step: the model's
 loss (``models.lipreader.compute_loss`` with dropout and the ROI jitter
 drawn from the step's generator), its gradients, the global norm of the
 unclipped gradients, one optimizer update. The step's generator is seeded

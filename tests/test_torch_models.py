@@ -1,7 +1,9 @@
 """The port's model layers and the universal4 model family
-(``lipreading_tpu_torch.models``) against the JAX package on the CPU, at a
-small size: weights from the JAX package's ``init_model`` carried across by
-``io.from_jax_params``, inputs made with numpy from a seed.
+(``lipreading_tpu_torch.models``), and a model of each family the JAX
+package's ``init_model`` builds besides it, against the JAX package on the
+CPU, at a small size: weights from the JAX package's ``init_model``
+carried across by ``io.from_jax_params``, inputs made with numpy from a
+seed.
 
 Tolerances: 1e-4 in float32, where both sides run the same operations and
 only summation order differs; 5e-2 on the CTC log-probabilities in bfloat16,
@@ -169,17 +171,47 @@ def test_encode_logprobs_match_jax_bfloat16():
                                atol=5e-2)
 
 
-def test_later_slices_raise_not_implemented():
-    cfg, _ = _cfgs()
-    for change in ({"encoder": "bigru"}, {"decoder": "attention"}):
-        c = Config(**{**cfg.__dict__, **change})
-        with pytest.raises(NotImplementedError):
-            tlr.LipReader(c)
-    c = Config(**{**cfg.__dict__,
-                  "model": ModelConfig(**{**cfg.model.__dict__,
-                                          "frontend": "conv3d"})})
-    with pytest.raises(NotImplementedError):
-        tlr.LipReader(c)
+@pytest.mark.parametrize("change", ["bigru", "attention", "conv3d"])
+def test_later_slices_raise_not_implemented(change):
+    """The three models this test once held refused (the bi-GRU encoder, a
+    decoder without the CTC head, the conv3d stem) now build, and each
+    one's forward matches the JAX package's in float32: the encoder output,
+    the CTC log-probabilities where it has the head, and the teacher-forced
+    attention logits where it has a decoder."""
+    cfg, jcfg = _cfgs()
+    small = {"gru_hidden": 12, "gru_layers": 2, "attn_dim": 8,
+             "decoder_hidden": 12, "frontend_channels": (4, 8, 12)}
+    if change == "bigru":
+        top = {"encoder": "bigru"}
+    elif change == "attention":
+        top = {"decoder": "attention"}
+    else:
+        top, small["frontend"] = {}, "conv3d"
+    cfg = Config(**{**cfg.__dict__, **top, "model": ModelConfig(
+        **{**cfg.model.__dict__, **small})})
+    jcfg = JConfig(**{**jcfg.__dict__, **top, "model": JModel(
+        **{**jcfg.model.__dict__, **small})})
+    model, tree = _model(cfg, jcfg, seed=3)
+    rois, lengths = _inputs(3)
+    rng = np.random.default_rng(3)
+    targets = rng.integers(3, 31, (B, 6)).astype(np.int32)
+    jenc = jlr.encode(tree, jcfg, jnp.asarray(rois), jnp.asarray(lengths))
+    with torch.no_grad():
+        enc = tlr.encode(model, cfg, _t(rois), _t(lengths))
+        pairs = [(enc, jenc)]
+        if cfg.decoder != "attention":
+            pairs.append((torch.log_softmax(tlr.ctc_logits(model, enc), -1),
+                          jax.nn.log_softmax(jlr.ctc_logits(tree, jenc), -1)))
+        if cfg.decoder != "ctc":
+            pairs.append((
+                tlr.attention_logits(model, cfg, enc, _t(lengths),
+                                     _t(targets)),
+                jlr.attention_logits(tree, jcfg, jenc, jnp.asarray(lengths),
+                                     jnp.asarray(targets))))
+    assert len(pairs) == 3 - (cfg.decoder != "hybrid")
+    for got, want in pairs:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -470,12 +470,19 @@ def test_entry_point_defaults_to_the_card(tmp_path):
 
 
 def test_flops_match_jax():
-    for decoder in ("hybrid", "ctc"):
-        cfg = preset("transformer-patchify").override(decoder=decoder)
-        jcfg = jpreset("transformer-patchify").override(decoder=decoder)
-        for B, T, L in ((8, 32, 12), (8, 128, 40), (2, 96, 7)):
-            assert tflops.train_step_flops(cfg, B, T, L) == \
-                jflops.train_step_flops(jcfg, B, T, L)
+    for name in ("transformer-patchify", "transformer-attn", "bigru-ctc"):
+        for decoder in ("hybrid", "ctc", "attention"):
+            cfg = preset(name).override(decoder=decoder)
+            jcfg = jpreset(name).override(decoder=decoder)
+            for B, T, L in ((8, 32, 12), (8, 128, 40), (2, 96, 7)):
+                assert tflops.train_step_flops(cfg, B, T, L) == \
+                    jflops.train_step_flops(jcfg, B, T, L), (name, decoder)
+            assert tflops.frontend_flops(cfg, 96) == \
+                jflops.frontend_flops(jcfg, 96)
+    cfg, jcfg = preset("bigru-ctc"), jpreset("bigru-ctc")
+    assert tflops.bigru_flops(cfg, 96) == jflops.bigru_flops(jcfg, 96)
+    assert tflops.attn_gru_decoder_flops(cfg, 96, 20) == \
+        jflops.attn_gru_decoder_flops(jcfg, 96, 20)
     if not torch.cuda.is_available():
         assert tflops.device_peak_flops() is None
     assert tflops._product("NVIDIA H100 80GB HBM3") == "H100 SXM"
@@ -487,15 +494,15 @@ def test_config_override_and_preset_match_jax():
     argv = ["train.seed=3", "model.dtype=float32", "data.time_buckets=32,64",
             "train.remat=1", "train.learning_rate=1e-3",
             "model.framewise_norm=true"]
-    got = preset("transformer-patchify").override(**parse_overrides(argv))
-    want = jpreset("transformer-patchify").override(**parse_overrides(argv))
-    for part in ("data", "preprocess", "model", "train"):
-        a, b = getattr(got, part), getattr(want, part)
-        for f in a.__dataclass_fields__:
-            assert getattr(a, f) == getattr(b, f), (part, f)
-    assert (got.name, got.encoder, got.decoder) == \
-        (want.name, want.encoder, want.decoder)
+    for name in ("transformer-patchify", "transformer-attn", "bigru-ctc"):
+        got = preset(name).override(**parse_overrides(argv))
+        want = jpreset(name).override(**parse_overrides(argv))
+        # every field, the mesh section (carried, never read) included
+        assert got.to_dict() == want.to_dict(), name
     with pytest.raises(KeyError):
         got.override(**{"train.nope": 1})
-    with pytest.raises(KeyError, match="not yet ported"):
-        preset("bigru-ctc")
+    # the JAX presets that build no model of their own, or need 8 devices
+    for name in ("oracle-single-clip", "preprocess-batched", "dp-v5e8"):
+        jpreset(name)
+        with pytest.raises(KeyError, match="unknown preset"):
+            preset(name)
