@@ -183,6 +183,32 @@ four phases:
   logits card against CPU within a limit that the attention mask off
   breaks, then one step; one step at ``teacher_forcing=0.5``.
 
+Streaming and the demo add two phases:
+
+* ``[stream]``: the ``greedy`` (untracked, beam 1) and ``quality``
+  (tracked with ``cut_flush``, beam 4, LM 0.4) configs of ``python -m
+  lipreading_tpu_torch.stream_latency`` on universal4 over
+  make_clip(33001-33003) in chunks of 8 (robust assets): a warm pass, then
+  a timed pass with the counts set to 0 before and read after (one ROI
+  launch a chunk, one more a re-acquire at a hard cut, no other kernel);
+  the same stream on the CPU, whose transcript after every feed and at
+  the end must equal the card's unless the streams part at an argmax
+  flip under ``NEAR_TIE_NATS`` (the frame and both margins printed); the
+  argmax, the prefix beam and the Viterbi path from the card's own
+  log-probs card == CPU; rtf, chunk ms p50 / p95 / max, finish ms, CER,
+  the commits, Viterbi and beam-tail calls, and one decode-bearing chunk
+  under ``torch.profiler`` (device busy ms, idle share). The pinned styled
+  stream of ``test_styled_stream_ladder_pin`` (33001 and 33002 at
+  variation 0.6, the quality config, window 64) must read CER 0 with a cut
+  event. ``ctc_viterbi_align`` card vs CPU at a window's shape (1 x 64 x
+  31) and on a seeded ragged batch: equal paths that collapse to their
+  labels; a planted fault (the skip allowed between repeated labels) must
+  break the gate;
+* ``[demo]``: ``python -m lipreading_tpu_torch.demo`` in-process on
+  fixture clip 3 (bigru_ctc, beam 8), the untracked batch mode and
+  ``stream=16``: the printed transcripts card equal to CPU; launches, and
+  the stream's Viterbi alignments on the card.
+
 Each kernel row's ``launches_by_path`` holds its launches on each of these
 paths' runs.
 
@@ -373,6 +399,18 @@ BIGRU_LOGITS_LIMIT = 1e-3   # float32 teacher-forced logits: card 3.9e-5,
 # 5.2e-5 / 2.4e-3, fault 3.4e-2 / 4.1e-2 / 1.2e-3 / 3.4e-2
 BIGRU_PARITY_LIMITS = {"loss_rel": 1e-3, "norm_rel": 5e-3,
                        "grad_1_cos": 3e-4, "flip_share": 1e-2}
+
+# streaming ([stream]): stream_latency's configs and the pinned styled
+# stream of tests/test_streaming.py::test_styled_stream_ladder_pin
+STREAM_SEEDS = (33001, 33002, 33003)
+STYLED_SEEDS = (33001, 33002)   # at variation 0.6
+STREAM_CHUNK, STREAM_WINDOW = 8, 64
+STREAM_BEAM, STREAM_LM = 4, 0.4
+STREAM_ASSETS = "robust"
+# a card stream may part from the CPU's only at an argmax whose top-1 minus
+# top-2 log-prob margin is below this on the card or the CPU (bf16 logits
+# of magnitude 8-32 are 0.0625-0.125 apart)
+NEAR_TIE_NATS = 0.25
 
 
 class SmokeError(RuntimeError):
@@ -3452,7 +3490,7 @@ def phase_evaluate(rows):
 @contextlib.contextmanager
 def planted(module, name: str, fake):
     """``module.name`` replaced by ``fake`` inside the block (a planted
-    fault)."""
+    fault, or a tap)."""
     real = getattr(module, name)
     setattr(module, name, fake)
     try:
@@ -3972,6 +4010,446 @@ def phase_train_bigru(gpu, cpu, rows):
     log(f"[train-bigru] phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# --- streaming and the demo: StreamingTranscriber's greedy and quality
+# configs, the pinned styled stream, ctc_viterbi_align, the demo entry
+
+
+def stream_ports(device: str) -> dict:
+    """universal4 and the robust preprocessing (with the presence head) on
+    ``device``, as ``python -m lipreading_tpu_torch.stream_latency`` loads
+    them."""
+    from lipreading_tpu_torch.io import load_preprocessors, load_release_model
+
+    model, cfg = load_release_model(RELEASE, device=device)
+    prep = load_preprocessors(cfg.preprocess.landmarker, STREAM_ASSETS,
+                              tracked=True, device=device)
+    return {"model": model, "cfg": cfg, "prep": prep}
+
+
+def stream_build(port, kind: str):
+    from lipreading_tpu_torch import stream_latency as sl
+
+    return sl.build(kind, port["model"], port["cfg"], port["prep"],
+                    STREAM_WINDOW, STREAM_CHUNK, STREAM_BEAM, STREAM_LM)
+
+
+@contextlib.contextmanager
+def tapped_stream(st, taps: list):
+    """Inside the block, each window decode of ``st`` appends (the window's
+    log-probs [W, V] on the host, its length, ``_ctx``) to ``taps``."""
+    from lipreading_tpu_torch import streaming
+
+    real_window, real_lp = st._window, streaming.ctc_log_probs
+    ctx = []
+
+    def window(T):
+        ctx.append(st._ctx)
+        return real_window(T)
+
+    def log_probs(model, cfg, rois, lengths):
+        lp = real_lp(model, cfg, rois, lengths)
+        taps.append((lp[0].float().cpu(), int(lengths[0]), ctx[-1]))
+        return lp
+
+    st._window = window
+    try:
+        with planted(streaming, "ctc_log_probs", log_probs):
+            yield taps
+    finally:
+        del st._window
+
+
+def commit_machinery(st, lp, T: int, ctx: int):
+    """What a window decode of ``st`` does after the encoder, from one
+    window's log-probs [W, V], on the transcriber's device: the argmax
+    path, the prefix beam's ids over the rolled live suffix and the
+    Viterbi path of its stripped labels, rolled back -> host tensors."""
+    import torch
+
+    with torch.inference_mode():
+        lp = lp.to(st.device)[None]
+        length = torch.tensor([T], dtype=torch.int32, device=st.device)
+        rolled, ids, n = st._beam(lp, length, ctx)
+        vit = st._force(rolled, ids, n, length, ctx)
+        return [x.cpu() for x in (torch.argmax(lp, dim=-1), ids, n, vit)]
+
+
+def first_argmax_flip(card_taps, cpu_taps):
+    """The first window decode whose argmax paths part over the valid
+    frames -> (decode index, frame, the card's and the CPU's top-1 minus
+    top-2 margin there), or None."""
+    import torch
+
+    for i, ((a, T, _), (b, _, _)) in enumerate(zip(card_taps, cpu_taps)):
+        pa, pb = torch.argmax(a[:T], -1), torch.argmax(b[:T], -1)
+        diff = torch.nonzero(pa != pb).flatten()
+        if diff.numel():
+            f = int(diff[0])
+            margin = [float(x[f].topk(2).values[0] - x[f].topk(2).values[1])
+                      for x in (a, b)]
+            return i, f, margin[0], margin[1]
+    return None
+
+
+def stream_profile(port, kind: str, frames, target: int) -> dict:
+    """Chunk ``target`` of a fresh stream under ``torch.profiler``, the
+    chunks before it fed outside the profile -> host ms, device busy ms
+    and device ops. An empty profile is taken again on a replayed stream,
+    as in ``device_ms``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    C = STREAM_CHUNK
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        st = stream_build(port, kind)
+        for k in range(target):
+            st.feed(frames[k * C:(k + 1) * C])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            st.feed(frames[target * C:(target + 1) * C])
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - t0) * 1e3
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if dev:
+            return {"host_ms": host, "ops": len(dev),
+                    "device_ms": sum(e.time_range.elapsed_us()
+                                     for e in dev) / 1e3}
+        log(f"[profiler] stream profile {attempt} of {PROFILE_ATTEMPTS} "
+            "recorded no device time: taken again")
+        time.sleep(1.0)
+    check(False, f"torch.profiler recorded no device time in "
+          f"{PROFILE_ATTEMPTS} stream profiles")
+
+
+def stream_stages(port, kind: str, frames) -> list[dict]:
+    """A fresh stream with its stages timed chunk by chunk (host clock,
+    the card synchronised around each): the tracked preprocessing and its
+    tracking loop, the untracked preprocessing, the window's encoder, the
+    prefix beam, the Viterbi alignment and the segment's joint beam ->
+    [{stage: ms, "chunk": ms}] a chunk."""
+    import torch
+
+    from lipreading_tpu_torch import streaming
+
+    split: dict = {}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            split[name] = (split.get(name, 0.0)
+                           + (time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    names = {"ctc_log_probs": "encoder", "ctc_prefix_beam_device":
+             "prefix beam", "ctc_viterbi_align": "viterbi",
+             "decode_ids": "segment joint beam", "track_boxes": "tracking",
+             "preprocess_frames": "preprocess"}
+    st = stream_build(port, kind)
+    st._pre_tracked = timed("tracked preprocess", st._pre_tracked)
+    out = []
+    with contextlib.ExitStack() as stack:
+        for attr, name in names.items():
+            stack.enter_context(planted(streaming, attr, timed(
+                name, getattr(streaming, attr))))
+        for lo in range(0, frames.shape[0], STREAM_CHUNK):
+            split.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st.feed(frames[lo:lo + STREAM_CHUNK])
+            torch.cuda.synchronize()
+            out.append(dict(split, chunk=(time.perf_counter() - t0) * 1e3))
+    return out
+
+
+def stream_config(kind: str, gpu, cpu, frames, truth, rows) -> None:
+    """One config of ``stream_latency`` on the card (warm, then timed and
+    counted) and on the CPU: every feed's transcript and the final one
+    equal, or a near tie shown; the commit machinery card == CPU from the
+    card's log-probs; the readings; one decode-bearing chunk profiled."""
+    import torch
+
+    from lipreading_tpu_torch import stream_latency as sl
+
+    wrappers = counted_wrappers()
+    C = STREAM_CHUNK
+    dur_s = frames.shape[0] / sl.FPS
+    sl.run_stream(stream_build(gpu, kind), frames, C,
+                  torch.cuda.synchronize)                      # warm-up
+    st = stream_build(gpu, kind)
+    torch.cuda.synchronize()
+    reset(wrappers.values())
+    text, times, finish_ms, hyps = sl.run_stream(st, frames, C,
+                                                 torch.cuda.synchronize)
+    n = {k: w.launches for k, w in wrappers.items()}
+    path_launches(rows, f"stream {kind}", n)
+    rep = sl.report(kind, text, truth, times, finish_ms, C, dur_s)
+    chunks = rep["chunks"]
+    per_call = 2 if gpu["cfg"].preprocess.landmarker == "conv" else 1
+    want_roi = per_call * (chunks + (st.cut_events if kind == "quality"
+                                     else 0))
+    log(f"[stream] {kind}: {json.dumps(rep)}")
+    log(f"[stream] {kind}: counts {st.counts}, cut events {st.cut_events}; "
+        f"launches {n} over {chunks} chunks ({n['roi_sampler'] / chunks:.3f}"
+        f" ROI launches a chunk, want {want_roi})")
+    check(n["roi_sampler"] == want_roi and n["ctc_greedy"] == 0
+          and n["ctc_lattice_fwd"] == 0,
+          f"[stream] {kind}: launches {n}, want {want_roi} ROI launches (one "
+          "a chunk, one more a re-acquire) and no other")
+    if kind == "quality":
+        check(st.counts["tail_beam"] > 0 and st.counts["segment"] > 0,
+              f"[stream] quality: counts {st.counts}")
+
+    card_taps, cpu_taps = [], []
+    st = stream_build(gpu, kind)
+    with tapped_stream(st, card_taps):
+        card = sl.run_stream(st, frames, C, torch.cuda.synchronize)
+    check(card[0] == text and card[3] == hyps,
+          f"[stream] {kind}: two card runs differ")
+    t0 = time.perf_counter()
+    st = stream_build(cpu, kind)
+    with tapped_stream(st, cpu_taps):
+        cpu_text, _, _, cpu_hyps = sl.run_stream(st, frames, C)
+    same = cpu_hyps == hyps and cpu_text == text
+    log(f"[stream] {kind}: CPU run ({time.perf_counter() - t0:.1f} s): "
+        f"every feed's transcript and the final one "
+        f"{'equal' if same else 'DIFFER'}; {len(card_taps)} window decodes")
+    if not same:
+        k = next((i for i, (a, b) in enumerate(zip(hyps, cpu_hyps))
+                  if a != b), len(hyps))
+        flip = first_argmax_flip(card_taps, cpu_taps)
+        log(f"[stream] {kind}: the streams part at chunk {k} (card "
+            f"{hyps[k] if k < len(hyps) else text!r}, CPU "
+            f"{cpu_hyps[k] if k < len(cpu_hyps) else cpu_text!r}); first "
+            f"argmax flip (decode, frame, card margin, CPU margin): {flip}")
+        check(flip is not None and min(flip[2], flip[3]) < NEAR_TIE_NATS,
+              f"[stream] {kind}: card {text!r} != CPU {cpu_text!r} with no "
+              f"near tie (< {NEAR_TIE_NATS} nats) shown")
+    # the commit machinery from the same (the card's) log-probs, with the
+    # quality config's beam and LM
+    machinery = (stream_build(gpu, "quality"), stream_build(cpu, "quality"))
+    for i, (lp, T, ctx) in enumerate(card_taps):
+        if i % 3 and i != len(card_taps) - 1:
+            continue
+        a, b = (commit_machinery(m, lp, T, ctx) for m in machinery)
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"[stream] {kind}: decode {i} (T {T}, ctx {ctx}): the argmax, "
+              "beam or Viterbi path from the same log-probs differs card vs "
+              "CPU")
+    log(f"[stream] {kind}: argmax, prefix beam and Viterbi card == CPU from "
+        f"the card's log-probs at every third window decode")
+
+    # the stages of each chunk; the two slowest (the p95 of 19) apart
+    stages = stream_stages(gpu, kind, frames)
+    total = {}
+    for d in stages:
+        for k, v in d.items():
+            total[k] = total.get(k, 0.0) + v
+    log(f"[stream] {kind}: stages over the stream (host ms, synchronised; "
+        "tracking inside tracked preprocess, encoder = the window decodes', "
+        "the segment decode's own encoder inside its joint beam): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in total.items()))
+    for d in sorted(stages, key=lambda d: -d["chunk"])[:2]:
+        log(f"[stream] {kind}: a slowest chunk: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in d.items()))
+
+    # one decode-bearing chunk (a window decode in it) under the profiler
+    st = stream_build(gpu, kind)
+    target, taps = None, []
+    for k in range(chunks):
+        before = len(taps)
+        with tapped_stream(st, taps):
+            st.feed(frames[k * C:(k + 1) * C])
+        if k >= 6 and len(taps) > before:
+            target = k
+            break
+    check(target is not None, f"[stream] {kind}: no decode-bearing chunk")
+    pr = stream_profile(gpu, kind, frames, target)
+    log(f"[stream] {kind}: chunk {target} (a window decode) under the "
+        f"profiler: host {pr['host_ms']:.1f} ms, device busy "
+        f"{pr['device_ms']:.2f} ms (idle "
+        f"{100 * (1 - pr['device_ms'] / pr['host_ms']):.1f} %), {pr['ops']} "
+        "device ops")
+
+
+def viterbi_case(seed: int):
+    """A seeded batch: log-probs [6, 64, 31], labels with repeats, ragged
+    input and label lengths (each feasible)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    B, T, V, L = 6, 64, 31, 20
+    lp = torch.log_softmax(2 * torch.randn(B, T, V, generator=g), -1)
+    labels = torch.randint(3, V, (B, L), generator=g, dtype=torch.int32)
+    labels[:, 1] = labels[:, 0]                     # a repeat in every row
+    in_len = torch.tensor([64, 50, 33, 20, 64, 5], dtype=torch.int32)
+    lab_len = torch.tensor([20, 11, 15, 0, 9, 2], dtype=torch.int32)
+    return lp, labels, in_len, lab_len
+
+
+def viterbi_gate(lp, labels, in_len, lab_len):
+    """ctc_viterbi_align on the card against the CPU -> (equal, every row
+    collapses to its labels)."""
+    import torch
+
+    from lipreading_tpu_torch.ops.ctc import ctc_viterbi_align
+
+    args = (lp, labels, in_len, lab_len)
+    got = ctc_viterbi_align(*(x.cuda() for x in args)).cpu()
+    want = ctc_viterbi_align(*args)
+    collapses = True
+    for b in range(lp.shape[0]):
+        row = got[b, :int(in_len[b])].tolist()
+        col = [c for i, c in enumerate(row) if i == 0 or c != row[i - 1]]
+        collapses &= [c for c in col if c != 0] == \
+            labels[b, :int(lab_len[b])].tolist()
+    return torch.equal(got, want), collapses
+
+
+def phase_stream_viterbi(window_lp) -> None:
+    """ctc_viterbi_align card vs CPU at the stream's shape (a window's log-
+    probs, its greedy labels) and on a seeded ragged batch; a planted fault
+    (the skip allowed between repeated labels) must break the gate."""
+    import torch
+
+    from lipreading_tpu_torch.ops import ctc
+
+    lp, T, _ = window_lp
+    path = torch.argmax(lp[:T], -1).tolist()
+    lab = [c for i, c in enumerate(path) if (i == 0 or c != path[i - 1])
+           and c != 0]
+    labels = torch.zeros((1, max(len(lab), 1)), dtype=torch.int32)
+    labels[0, :len(lab)] = torch.tensor(lab, dtype=torch.int32)
+    cases = {"stream window": (lp[None], labels, torch.tensor([T]),
+                               torch.tensor([len(lab)])),
+             "seeded batch": viterbi_case(0)}
+    for name, case in cases.items():
+        eq, col = viterbi_gate(*case)
+        log(f"[stream] viterbi {name} ({tuple(case[0].shape)}): card "
+            f"{'==' if eq else '!='} CPU, collapses to the labels: {col}")
+        check(eq and col, f"[stream] viterbi {name}: equal {eq}, collapses "
+              f"{col}")
+    # the fault: blank almost impossible, so with the skip allowed a
+    # repeated label takes it and the path collapses short
+    lp = torch.full((1, 8, 31), -30.0)
+    lp[0, :5, 5] = 0.0
+    lp[0, 5:, 7] = 0.0
+    case = (torch.log_softmax(lp, -1), torch.tensor([[5, 5, 7]],
+                                                    dtype=torch.int32),
+            torch.tensor([8]), torch.tensor([3]))
+    check(all(viterbi_gate(*case)), "[stream] viterbi fault case fails "
+          "without the fault")
+    with planted(ctc, "_skip_ok", lambda ext, blank: ext != blank):
+        got = ctc.ctc_viterbi_align(*(x.cuda() for x in case)).cpu()
+    eq = torch.equal(got, ctc.ctc_viterbi_align(*case))
+    log(f"[stream] viterbi planted fault (the skip between repeated "
+        f"labels): card path {got[0].tolist()}, card == CPU {eq}")
+    check(not eq, "[stream] the planted Viterbi fault passed the gate")
+
+
+def phase_stream(rows) -> None:
+    """[stream]: the greedy and quality configs of ``python -m
+    lipreading_tpu_torch.stream_latency`` over make_clip(33001..33003) on
+    the card and the CPU; the pinned styled stream (CER 0, a cut event);
+    ctc_viterbi_align card vs CPU with a planted fault."""
+    import numpy as np
+    import torch
+
+    from lipreading_tpu_torch import stream_latency as sl
+    from lipreading_tpu_torch.fixtures import make_clip
+    from lipreading_tpu_torch.metrics import cer
+
+    t_phase = time.perf_counter()
+    gpu, cpu = stream_ports("cuda"), stream_ports("cpu")
+    clips = [make_clip(s, gpu["cfg"].data) for s in STREAM_SEEDS]
+    frames = np.concatenate([c.frames for c in clips])
+    truth = " ".join(c.text for c in clips)
+    log(f"[stream] {frames.shape[0]} frames of make_clip{STREAM_SEEDS} in "
+        f"chunks of {STREAM_CHUNK}, window {STREAM_WINDOW}, release "
+        f"{RELEASE}, {STREAM_ASSETS} assets")
+    for kind in ("greedy", "quality"):
+        stream_config(kind, gpu, cpu, frames, truth, rows)
+
+    # the pinned styled stream of test_styled_stream_ladder_pin
+    wrappers = counted_wrappers()
+    styled = [make_clip(s, gpu["cfg"].data, variation=0.6)
+              for s in STYLED_SEEDS]
+    sf = np.concatenate([c.frames for c in styled])
+    struth = " ".join(c.text for c in styled)
+    st = stream_build(gpu, "quality")
+    taps = []
+    with tapped_stream(st, taps):
+        (hyp, _, _, _), ms, n = counted_call(wrappers, lambda: sl.run_stream(
+            st, sf, STREAM_CHUNK, torch.cuda.synchronize))
+    path_launches(rows, "stream styled", n)
+    e = cer(hyp, struth)
+    log(f"[stream] styled {STYLED_SEEDS} at variation 0.6: {hyp!r} (truth "
+        f"{struth!r}), CER {e:.4f}, cut events {st.cut_events}, counts "
+        f"{st.counts}, {ms:.1f} ms host clock, launches {n}")
+    check(e == 0.0 and st.cut_events >= 1,
+          f"[stream] styled stream: CER {e}, cut events {st.cut_events}")
+    phase_stream_viterbi(taps[-1])
+    log(f"[stream] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_demo(rows) -> None:
+    """[demo]: ``python -m lipreading_tpu_torch.demo`` in-process on fixture
+    clip 3 (bigru_ctc, beam 8), the untracked batch mode and ``stream=16``,
+    on the card and the CPU: the printed transcripts equal. The stream
+    outgrows its window, so its commits force the beam onto the frames
+    (``ctc_viterbi_align``, counted)."""
+    import io
+
+    from lipreading_tpu_torch import streaming
+    from lipreading_tpu_torch.demo import main as demo
+
+    wrappers = counted_wrappers()
+    nowhere = os.path.join(ROOT, "runs", "chip_smoke_demo_none")
+    real_align = streaming.ctc_viterbi_align
+    aligned = []
+
+    def align(*a, **k):
+        aligned.append(a[0].device.type)
+        return real_align(*a, **k)
+
+    for mode in ([], ["stream=16"]):
+        name = "demo " + (mode[0] if mode else "batch")
+        argv = [f"workdir={nowhere}", "fixture_seed=3"] + mode
+        lines = {}
+        for device in ("cuda", "cpu"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                if device == "cuda":
+                    demo(argv + ["device=cuda"])        # loads, warms up
+                    buf.truncate(0)
+                    buf.seek(0)
+                    aligned.clear()
+                    with planted(streaming, "ctc_viterbi_align", align):
+                        _, ms, n = counted_call(
+                            wrappers, lambda: demo(argv + ["device=cuda"]))
+                else:
+                    demo(argv + ["device=cpu"])
+            lines[device] = [x for x in buf.getvalue().splitlines()
+                             if x.startswith(("transcript:", "reference :",
+                                              "  t="))]
+        path_launches(rows, name, n)
+        log(f"[demo] {name}: {ms:.1f} ms with loading; launches {n}; "
+            f"{len(aligned)} Viterbi alignments on the card; "
+            + "; ".join(lines["cuda"]) + "; CPU "
+            + ("equal" if lines["cpu"] == lines["cuda"] else "DIFFERS"))
+        check(lines["cpu"] == lines["cuda"] and lines["cuda"],
+              f"[demo] {name}: card {lines['cuda']} != CPU {lines['cpu']}")
+        check(n["roi_sampler"] > 0, f"[demo] {name}: launches {n}")
+        if mode:
+            check(aligned and set(aligned) == {"cuda"},
+                  f"[demo] {name}: Viterbi alignments on {aligned}")
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     t_start = time.perf_counter()
@@ -4030,6 +4508,8 @@ def main() -> int:
         phase_serve_bigru(rows)
         phase_train_bigru(gpu_b, cpu_b, rows)
         del gpu_b, cpu_b
+        phase_stream(rows)
+        phase_demo(rows)
     except Exception as e:  # every phase failure ends here, without a result
         import traceback
 

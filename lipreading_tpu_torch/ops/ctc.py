@@ -18,7 +18,10 @@ lattice kernels in ``lipreading_tpu/ops/ctc_pallas.py``).
 * ``ctc_loss_best``: the lattice kernels for CUDA tensors, the plain
   ``ctc_loss`` for CPU tensors.
 
-``ctc_viterbi_align`` belongs to streaming, a later slice of the port.
+* ``ctc_viterbi_align``: max-product forced alignment through the CTC
+  lattice (the streaming transcriber's beam commits). Plain PyTorch, as the
+  JAX package leaves it to ``lax.scan``: a loop over T keeps the
+  backpointers, a reverse loop reads the states back.
 """
 
 from __future__ import annotations
@@ -68,6 +71,79 @@ def _final_ll(alpha_T: torch.Tensor, label_lengths: torch.Tensor):
     a_prev = torch.gather(alpha_T, 1, prev[:, None])[:, 0]
     a_prev = torch.where(lab > 0, a_prev, NEG_INF)
     return torch.logaddexp(a_last, a_prev)
+
+
+def _skip_ok(ext: torch.Tensor, blank: int) -> torch.Tensor:
+    """[B, S] extended labels -> where the two-state skip is allowed: onto a
+    label that differs from the label before it (never between repeats)."""
+    ext_prev2 = F.pad(ext, (2, 0), value=blank)[:, :ext.shape[1]]
+    return (ext != blank) & (ext != ext_prev2)
+
+
+def ctc_viterbi_align(logp: torch.Tensor, labels: torch.Tensor,
+                      input_lengths: torch.Tensor,
+                      label_lengths: torch.Tensor,
+                      blank: int = 0) -> torch.Tensor:
+    """Viterbi (max-product) forced alignment of ``labels`` through the CTC
+    lattice (counterpart of ``lipreading_tpu/ops/ctc.py``'s).
+
+    logp [B, T, V] log-posteriors; labels [B, L] bare ids; input_lengths
+    and label_lengths [B]. Returns [B, T] int32 per-frame emitted ids: the
+    aligned label or blank; frames at or past ``input_length`` emit blank.
+    Ties go as in the JAX package: staying beats the one-state move, which
+    beats the skip, and at the end the last state beats the one before
+    it. States past ``2 * label_length`` stay dead; an infeasible length
+    saturates to the closest feasible prefix."""
+    B, T, V = logp.shape
+    S = 2 * labels.shape[1] + 1
+    dev = logp.device
+    logp = logp.float()
+    ext = extend_labels(labels.long(), blank)                       # [B, S]
+    skip_ok = _skip_ok(ext, blank)
+    lp_ext = torch.gather(logp, 2, ext[:, None, :].expand(B, T, S))
+    lp_ext = lp_ext.transpose(0, 1)                                  # [T, B, S]
+    in_len = input_lengths.to(dev).long()
+    lab_len = label_lengths.to(dev).long()
+
+    usable = torch.arange(S, device=dev)[None, :] <= 2 * lab_len[:, None]
+    dead = torch.where(usable, 0.0, NEG_INF)
+    alpha = torch.full((B, S), NEG_INF, device=dev)
+    alpha[:, 0] = lp_ext[0, :, 0]
+    if S > 1:
+        alpha[:, 1] = lp_ext[0, :, 1]
+    alpha = alpha + dead
+
+    neg = torch.tensor(NEG_INF, device=dev)
+    choices = torch.zeros((max(T - 1, 0), B, S), dtype=torch.long,
+                          device=dev)
+    for t in range(1, T):
+        a1 = _shift(alpha, 1)
+        a2 = torch.where(skip_ok, _shift(alpha, 2), neg)
+        better = a1 > alpha
+        best = torch.where(better, a1, alpha)
+        choice = better.long()
+        better = a2 > best
+        best = torch.where(better, a2, best)
+        choice = torch.where(better, 2, choice)
+        active = (t < in_len)[:, None]
+        alpha = torch.where(active, best + lp_ext[t] + dead, alpha)
+        choices[t - 1] = torch.where(active, choice, 0)
+
+    last = torch.clamp(2 * lab_len, 0, S - 1)
+    prev = torch.clamp(last - 1, 0, S - 1)
+    a_last = torch.gather(alpha, 1, last[:, None])[:, 0]
+    a_prev = torch.gather(alpha, 1, prev[:, None])[:, 0]
+    a_prev = torch.where(lab_len > 0, a_prev, neg)
+    s = torch.where(a_last >= a_prev, last, prev)                   # [B]
+    states = [None] * T
+    for t in range(T - 1, 0, -1):
+        states[t] = s
+        c = torch.gather(choices[t - 1], 1, s[:, None])[:, 0]
+        s = torch.where(t < in_len, s - c, s)
+    states[0] = s
+    emit = torch.gather(ext, 1, torch.stack(states, dim=1))         # [B, T]
+    valid = torch.arange(T, device=dev)[None, :] < in_len[:, None]
+    return torch.where(valid, emit, blank).int()
 
 
 def ctc_loss(logits: torch.Tensor, labels: torch.Tensor,

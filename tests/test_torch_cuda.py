@@ -650,3 +650,49 @@ def test_cascade_on_the_card_matches_the_cpu(cuda):
     for margin in (float("inf"), 8.0):
         assert out["cuda", margin] == out["cpu", margin]
     assert out["cuda", 8.0][0] == out["cuda", float("inf")][0]
+
+
+@pytest.mark.cuda
+def test_viterbi_on_the_card_matches_the_cpu(cuda):
+    """``ctc_viterbi_align`` on a seeded batch with repeated labels and
+    ragged input and label lengths (one of 0, one infeasible): the card's
+    paths equal the CPU's exactly."""
+    g = torch.Generator().manual_seed(3)
+    B, T, V, L = 5, 64, 31, 24
+    lp = torch.log_softmax(2 * torch.randn(B, T, V, generator=g), -1)
+    labels = torch.randint(3, V, (B, L), generator=g, dtype=torch.int32)
+    labels[:, 2] = labels[:, 1]
+    in_len = torch.tensor([64, 40, 17, 64, 9], dtype=torch.int32)
+    lab_len = torch.tensor([24, 10, 0, 5, 12], dtype=torch.int32)
+    want = ctc.ctc_viterbi_align(lp, labels, in_len, lab_len)
+    got = ctc.ctc_viterbi_align(lp.to(cuda), labels.to(cuda),
+                                in_len.to(cuda), lab_len.to(cuda))
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_stream_on_the_card_matches_the_cpu(cuda):
+    """The quality stream of ``stream_latency`` (universal4, tracked with
+    ``cut_flush``, beam 4, LM 0.4, window 64, chunks of 8, robust assets)
+    over make_clip(33001) and (33002) back to back: every feed's
+    transcript card equal to CPU; one ROI launch a chunk and one more a
+    re-acquire at the cut."""
+    from lipreading_tpu_torch import io, stream_latency
+    from lipreading_tpu_torch.fixtures import make_clip
+
+    frames = np.concatenate([make_clip(s).frames for s in (33001, 33002)])
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        model, cfg = io.load_release_model(device=dev)
+        prep = io.load_preprocessors(cfg.preprocess.landmarker, "robust",
+                                     tracked=True, device=dev)
+        st = stream_latency.build("quality", model, cfg, prep, 64, 8, 4, 0.4)
+        before = roi.sample_rois.launches
+        text, _, _, hyps = stream_latency.run_stream(st, frames, 8)
+        out[dev.type] = (text, hyps)
+        if dev.type == "cuda":
+            assert st.cut_events == 1
+            assert (roi.sample_rois.launches - before
+                    == len(hyps) + st.cut_events)
+    assert out["cuda"] == out["cpu"]
