@@ -209,6 +209,28 @@ Streaming and the demo add two phases:
   ``stream=16``: the printed transcripts card equal to CPU; launches, and
   the stream's Viterbi alignments on the card.
 
+Preprocessor training adds one phase, ``[preproc-train]``, at the models'
+full widths (the detector 1->8->16->32->4, the conv landmarker at width 1.0,
+16->96 channels and a dense layer of 256; batch 64, the presence head full
+batch), on clips rendered in the worker processes meanwhile: the first 3
+steps of ``train_detector`` (train_all's corpus), ``fit_presence_head``
+(the shipped trunk, ``scripts/train_presence.py``'s corpus and negatives)
+and ``train_conv_landmarker`` with ``roi_loss_weight`` 0 and 1, each card
+against CPU from one start and one set of numpy indices within
+``PRE_WEIGHT_LIMIT`` of the weights' norm, which a planted fault (the ROI
+term's landmarks detached) must break; each trainer's ms a step
+(``time_ms``) and device share (``device_ms``); the detector's 1500 steps
+and its held-out box error; the presence head's 600 steps and held-out
+confidences; ERT boosting on the host (2 stages x 96 trees, depth 4, pool
+128), timed; the JAX test's distillation (6 clips, 700 steps at batch 32)
+behind the shipped detector and ERT, whose held-out error must be below
+3 px on the card and equal to the CPU's within ``LMK_ERR_LIMIT`` (the
+rounded-box agreement within one frame), with one ROI launch a 512 frames
+in its teacher pass (counted) and kernel 1 against its plain version at
+the teacher crop's shape; and the transcript gate (the
+``transformer_hybrid_universal`` release behind both landmarkers, beam 8,
+LM 0.4) with the card's transcripts equal to the CPU's.
+
 Each kernel row's ``launches_by_path`` holds its launches on each of these
 paths' runs.
 
@@ -411,6 +433,23 @@ STREAM_ASSETS = "robust"
 # top-2 log-prob margin is below this on the card or the CPU (bf16 logits
 # of magnitude 8-32 are 0.0625-0.125 apart)
 NEAR_TIE_NATS = 0.25
+# [preproc-train]: fixture clips by their make_clip seeds (make_clips(s, n)
+# renders s * 10_000 + i): train_all's corpus at seed 0 and its held-out
+# clips, scripts/train_presence.py's, and tests/test_landmarker.py's
+PRE_CLIPS = {"det": [10_000 + i for i in range(40)],
+             "det_held": [777_001 * 10_000 + i for i in range(6)],
+             "presence": [310_000 + i for i in range(24)],
+             "presence_held": [777_101 * 10_000 + i for i in range(4)],
+             "lmk": [9100 + i for i in range(6)],
+             "lmk_held": [9300, 9301]}
+PRE_CMP_STEPS = 3           # first steps held card against CPU
+PRE_CMP_CLIPS = 2           # the landmarker's comparisons: lmk's first clips
+PRE_WEIGHT_LIMIT = 1e-4     # |card - CPU| / |CPU| over all weights
+LMK_STEPS, LMK_BATCH, LMK_ERR_PX = 700, 32, 3.0   # the JAX test's run
+LMK_ERR_LIMIT = 1e-4        # px, the card-trained weights' error card vs CPU
+PRE_ERT = dict(stages=2, trees=96, depth=4, pool=128)
+PRE_GATE_CLIPS = 2
+PRE_GATE_RELEASE = "transformer_hybrid_universal"
 
 
 class SmokeError(RuntimeError):
@@ -4450,6 +4489,273 @@ def phase_demo(rows) -> None:
             check(aligned and set(aligned) == {"cuda"},
                   f"[demo] {name}: Viterbi alignments on {aligned}")
 
+def render_fixture(seed: int):
+    """make_clip(seed) in a worker process."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    from lipreading_tpu_torch.fixtures import make_clip
+
+    return make_clip(seed)
+
+
+def start_preproc_clips(pool) -> dict:
+    """Render [preproc-train]'s clips in the worker processes meanwhile."""
+    return {k: [pool.submit(render_fixture, s) for s in seeds]
+            for k, seeds in PRE_CLIPS.items()}
+
+
+def weight_readings(card: dict, cpu: dict, start: dict) -> dict:
+    """Numpy weight dicts -> |card - CPU| over all weights relative to |CPU|
+    (``rel``, the gate) and to |CPU - start| (``rel_update``), and the
+    largest |card - CPU|."""
+    import numpy as np
+
+    sq = lambda d: sum(float((v.astype(np.float64) ** 2).sum())  # noqa: E731
+                       for v in d.values())
+    diff = {k: card[k] - cpu[k] for k in cpu}
+    return {"rel": (sq(diff) / sq(cpu)) ** 0.5,
+            "rel_update": (sq(diff) / sq({k: cpu[k] - start[k]
+                                          for k in cpu})) ** 0.5,
+            "max_abs": max(float(np.abs(v).max()) for v in diff.values())}
+
+
+def trainer_times(name: str, run, steps=(10, 40)) -> dict:
+    """``run(k)`` trains k steps on the card: ms a step from ``time_ms``
+    (CUDA events, synchronised: the difference of ``steps[1]`` and
+    ``steps[0]`` steps, so set-up cancels), and the device share of one
+    ``steps[1]``-step run (``device_ms``'s busy ms over its host ms)."""
+    import torch
+
+    a = time_ms(lambda: run(steps[0]), iters=2)
+    b = time_ms(lambda: run(steps[1]), iters=2)
+    step = (b - a) / (steps[1] - steps[0])
+    dev = device_ms(lambda: run(steps[1]), iters=1)[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(steps[1])
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3
+    log(f"[preproc-train] {name}: {step:.3f} ms a step (time_ms, "
+        f"{steps[1]} minus {steps[0]} steps); a {steps[1]}-step run "
+        f"{host:.1f} ms host clock, {dev:.2f} ms of device work "
+        f"(torch.profiler), device share {dev / host:.1%}")
+    return {"ms_step": step, "device_ms": dev, "host_ms": host,
+            "share": dev / host}
+
+
+def preproc_compare(name: str, run, start: dict, fault=None) -> dict:
+    """``run(device)`` -> numpy weights after the first steps; card against
+    CPU within PRE_WEIGHT_LIMIT, and ``fault()``'s card weights (a planted
+    fault) past it."""
+    card, cpu = run(DEV), run("cpu")
+    r = weight_readings(card, cpu, start)
+    msg = (f"[preproc-train] {name}, {PRE_CMP_STEPS} steps card vs CPU: "
+           f"|card - CPU| / |CPU| = {r['rel']:.3g} (limit "
+           f"{PRE_WEIGHT_LIMIT:g}), / |update| = {r['rel_update']:.3g}, "
+           f"max {r['max_abs']:.3g}")
+    if fault is not None:
+        f = weight_readings(fault(), cpu, start)
+        msg += (f"; planted fault {f['rel']:.3g} (/ |update| "
+                f"{f['rel_update']:.3g})")
+        r["fault"] = f["rel"]
+    log(msg)
+    check(r["rel"] <= PRE_WEIGHT_LIMIT, f"{name}: card vs CPU {r['rel']}")
+    check(fault is None or r["fault"] > PRE_WEIGHT_LIMIT,
+          f"{name}: the planted fault passes ({r.get('fault')})")
+    return r
+
+
+def phase_preproc_train(pre_futures, rows) -> None:
+    """[preproc-train]: the preprocessor trainers on the card at full width
+    (detector 1->8->16->32->4, conv landmarker width 1.0, batch 64, the
+    presence head full batch): the first steps of each card against CPU
+    (from one start and one set of numpy indices; the landmarker with
+    roi_loss_weight 0 and 1, and a planted fault, the ROI term's landmarks
+    detached); ms a step and device share of each; the detector's 1500
+    steps and held-out box error; the presence head's 600 steps on the
+    shipped trunk and held-out confidences; ERT boosting on the host; the
+    JAX test's 700-step distillation (< 3 px) with its teacher pass's ROI
+    launches and the kernel against its plain version at the teacher
+    crop's shape; the gate metrics card vs CPU; the transcript gate card
+    vs CPU."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from lipreading_tpu_torch import preproc_training as pt
+    from lipreading_tpu_torch.io import load_assets
+    from lipreading_tpu_torch.ops.detector import detect, params_to_torch
+    from lipreading_tpu_torch.ops.landmarker import (
+        CROP,
+        init_landmarker,
+        round_face_boxes,
+    )
+    from lipreading_tpu_torch.oracle.roi import grayscale
+    from lipreading_tpu_torch.oracle.detector import init_detector
+    from lipreading_tpu_torch.oracle.ert_train import landmark_error, train_ert
+    from lipreading_tpu_torch.train_landmarker import gate_transcript_cer
+    from lipreading_tpu_torch.train_presence import max_conf, negatives
+
+    t_phase = time.perf_counter()
+    clips = {k: [f.result(timeout=600) for f in v]
+             for k, v in pre_futures.items()}
+    det_np, ert_np = load_assets()
+    wrappers = counted_wrappers()
+    summary = {}
+
+    # the detector, on train_all's corpus
+    gray, boxes, lms = pt._collect_frames(clips["det"])
+    tg, tb, tl = pt._collect_frames(clips["det_held"], stride=4)
+    log(f"[preproc-train] detector corpus {gray.shape[0]} frames of "
+        f"{len(clips['det'])} clips; held-out {tg.shape[0]} frames")
+    preproc_compare("detector", lambda d: pt.train_detector(
+        gray, boxes, steps=PRE_CMP_STEPS, device=d), init_detector(0))
+    summary["detector"] = trainer_times(
+        "detector (batch 64)",
+        lambda k: pt.train_detector(gray, boxes, steps=k, device=DEV))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    det = pt.train_detector(gray, boxes, device=DEV)
+    torch.cuda.synchronize()
+    det_s = time.perf_counter() - t0
+    err = pt.detector_box_error(det, tg, tb, DEV)
+    shipped_err = pt.detector_box_error(det_np, tg, tb, DEV)
+    log(f"[preproc-train] train_detector 1500 steps at batch 64: "
+        f"{det_s:.2f} s; held-out box error {err:.3f} px (the shipped "
+        f"detector: {shipped_err:.3f} px)")
+    check(np.isfinite(err), f"detector box error {err}")
+
+    # ERT boosting on the host
+    t0 = time.perf_counter()
+    ert = train_ert(gray, boxes, lms, **PRE_ERT)
+    ert_s = time.perf_counter() - t0
+    log(f"[preproc-train] train_ert {PRE_ERT} on the host: {ert_s:.2f} s; "
+        f"held-out landmark error {landmark_error(ert, tg, tb, tl):.5f} box "
+        f"units")
+
+    # the presence head on the shipped trunk, as scripts/train_presence.py
+    pg, pb, _ = pt._collect_frames(clips["presence"], stride=3)
+    H, W = pg.shape[1:]
+    neg = negatives(0, H, W, 0.0)
+    feats = {d: pt.presence_features(det_np, pg, neg, pb, d)
+             for d in (DEV, "cpu")}
+    init = pt.init_presence_head(feats["cpu"][0].shape[-1], 0)
+    preproc_compare("presence head", lambda d: pt.fit_presence_head(
+        init, *feats[d], steps=PRE_CMP_STEPS), init)
+    summary["presence"] = trainer_times(
+        f"presence head (full batch, {feats['cpu'][0].shape[0]} frames)",
+        lambda k: pt.fit_presence_head(init, *feats[DEV], steps=k))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    head = pt.train_presence_head(det_np, pg, neg, pb, device=DEV)
+    torch.cuda.synchronize()
+    head_s = time.perf_counter() - t0
+    hg, _, _ = pt._collect_frames(clips["presence_held"], stride=4)
+    detc = params_to_torch(det_np, DEV)
+    headc = {k: torch.as_tensor(v, device=DEV) for k, v in head.items()}
+    pos_c = max_conf(detc, headc, hg, DEV)
+    neg_c = max_conf(detc, headc, negatives(500, H, W, 0.0)[:24], DEV)
+    log(f"[preproc-train] train_presence_head 600 steps: {head_s:.2f} s; "
+        f"held-out face conf min {pos_c.min():.3f} mean {pos_c.mean():.3f}, "
+        f"faceless max {neg_c.max():.3f} mean {neg_c.mean():.3f}")
+    check(np.isfinite(pos_c).all() and np.isfinite(neg_c).all(),
+          "presence confidences")
+
+    # the conv landmarker: first steps card vs CPU, roi_loss_weight 0 and 1
+    cmp_clips = clips["lmk"][:PRE_CMP_CLIPS]
+    cg = np.stack([grayscale(c.frames[t]) for c in cmp_clips
+                   for t in range(c.num_frames)]).astype(np.float32)
+    start = init_landmarker(0, mean_shape=pt.teacher_pass(
+        det_np, ert_np, cg, "cpu")[1].mean(axis=0))
+
+    def lmk_run(device, w, k=PRE_CMP_STEPS, batch=64):
+        return pt.train_conv_landmarker(det_np, ert_np, cmp_clips, steps=k,
+                                        batch=batch, roi_loss_weight=w,
+                                        verbose=False, device=device)
+
+    real = pt.roi_term_rois
+
+    def detached(lm, *a):          # the planted fault
+        return real(lm.detach(), *a)
+
+    def faulty():
+        with planted(pt, "roi_term_rois", detached):
+            return lmk_run(DEV, 1.0)
+
+    for w in (0.0, 1.0):
+        preproc_compare(f"conv landmarker roi_loss_weight={w:g}",
+                        lambda d, w=w: lmk_run(d, w), start,
+                        fault=faulty if w else None)
+        summary[f"landmarker roi={w:g}"] = trainer_times(
+            f"conv landmarker (batch 64, roi_loss_weight={w:g})",
+            lambda k, w=w: lmk_run(DEV, w, k))
+
+    # the JAX test's distillation: 6 clips, 700 steps at batch 32
+    torch.cuda.synchronize()
+    lg = np.stack([grayscale(c.frames[t]) for c in clips["lmk"]
+                   for t in range(c.num_frames)]).astype(np.float32)
+    lm, ms, n = counted_call(wrappers, lambda: pt.train_conv_landmarker(
+        det_np, ert_np, clips["lmk"], steps=LMK_STEPS, batch=LMK_BATCH,
+        verbose=False, device=DEV))
+    want = -(-lg.shape[0] // pt.TEACHER_CHUNK)
+    path_launches(rows, "preproc-train teacher", n)
+    held = clips["lmk_held"]
+    err = {k: pt.conv_landmarker_error(lm, det_np, ert_np, held, device=d)
+           for k, d in (("card", DEV), ("cpu", "cpu"))}
+    agree = {k: pt.conv_box_agreement(lm, det_np, ert_np, held, device=d)
+             for k, d in (("card", DEV), ("cpu", "cpu"))}
+    total = sum(c.num_frames for c in held)
+    log(f"[preproc-train] train_conv_landmarker {LMK_STEPS} steps at batch "
+        f"{LMK_BATCH} on {lg.shape[0]} frames of make_clip(9100..9105): "
+        f"{ms / 1e3:.2f} s; launches {n} (the teacher pass: {want} expected, "
+        f"one a {pt.TEACHER_CHUNK} frames); held-out make_clip(9300, 9301) "
+        f"error vs the ERT {err['card']:.4f} px on the card, "
+        f"{err['cpu']:.4f} on the CPU (limit {LMK_ERR_PX} px; card vs CPU "
+        f"{abs(err['card'] - err['cpu']):.3g}, limit {LMK_ERR_LIMIT:g}); "
+        f"rounded-box agreement {agree['card']:.4f} / {agree['cpu']:.4f} of "
+        f"{total} frames")
+    check(err["card"] < LMK_ERR_PX, f"distilled error {err['card']} px")
+    check(abs(err["card"] - err["cpu"]) <= LMK_ERR_LIMIT,
+          f"landmarker error card {err['card']} vs CPU {err['cpu']}")
+    check(abs(agree["card"] - agree["cpu"]) * total <= 1 + 1e-9,
+          f"box agreement card {agree['card']} vs CPU {agree['cpu']}")
+    check(n["roi_sampler"] == want and sum(n.values()) == want,
+          f"teacher pass launches {n}, want {want} ROI launches")
+
+    # kernel 1 at the teacher crop's own shape (a chunk of 512 frames)
+    g = torch.as_tensor(lg[:pt.TEACHER_CHUNK], device=DEV)
+    with torch.no_grad():
+        ibox = round_face_boxes(detect(detc, g), *g.shape[1:])
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device=DEV)
+    crop = roi_times("preproc-train teacher crop", g, ibox, CROP,
+                     dict(mean=0.421, std=0.165, normalize=False), flush,
+                     launch_floor_ms())
+    del flush
+    row = next(r for r in rows if r["name"] == "roi_sampler")
+    row["preproc-train"] = dict(
+        N=g.shape[0], R=CROP, normalize=0, max_abs_err=crop["err"],
+        **{k: crop[k] for k in ("ms", "ms_raw", "plain_ms", "library_ms",
+                                "bound_ms", "bound_by", "wrapper_ms")})
+    row["max_abs_err"] = max(row["max_abs_err"], crop["err"])
+
+    # the transcript gate: the release behind both paths, card vs CPU
+    hyps = {}
+    for k, d in (("card", DEV), ("cpu", "cpu")):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            _, hyps[k] = gate_transcript_cer(
+                lm, det_np, ert_np, PRE_GATE_RELEASE, 0.0, 0,
+                n_clips=PRE_GATE_CLIPS, device=d)
+        log(f"[preproc-train] {k}: {buf.getvalue().strip()} {hyps[k]}")
+    check(hyps["card"] is not None and hyps["card"] == hyps["cpu"],
+          f"transcript gate card {hyps['card']} != CPU {hyps['cpu']}")
+    log(f"[preproc-train] ms a step: " + ", ".join(
+        f"{k} {v['ms_step']:.3f} (device share {v['share']:.1%})"
+        for k, v in summary.items()))
+    log(f"[preproc-train] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     t_start = time.perf_counter()
@@ -4475,6 +4781,7 @@ def main() -> int:
     pool = None
     try:
         pool, long_futures = start_long_clips()
+        pre_futures = start_preproc_clips(pool)
         phase_build()
         smi = nvidia_smi_line()
         log(f"[card] {smi}")
@@ -4510,6 +4817,7 @@ def main() -> int:
         del gpu_b, cpu_b
         phase_stream(rows)
         phase_demo(rows)
+        phase_preproc_train(pre_futures, rows)
     except Exception as e:  # every phase failure ends here, without a result
         import traceback
 

@@ -407,7 +407,8 @@ class PinnedPrefetcher:
     On the CPU (only tests ask for it) the arrays are copied plainly and
     nothing is pinned; the events are None. Every queue wait polls: an
     error in the thread raises at ``next``, and a batch that does not come
-    within ``timeout`` seconds raises."""
+    within ``timeout`` seconds raises. After the end or the thread's error
+    has been raised, every later ``next`` raises StopIteration."""
 
     _DONE = object()
 
@@ -418,6 +419,7 @@ class PinnedPrefetcher:
         self.timeout = timeout
         self.q: queue.Queue = queue.Queue(maxsize=PREFETCH_DEPTH)
         self._stop = threading.Event()
+        self._ended = False
         self._cuda = self.device.type == "cuda"
         if self._cuda:
             self.stream = torch.cuda.Stream(self.device)
@@ -477,6 +479,8 @@ class PinnedPrefetcher:
     def __next__(self):
         import torch
 
+        if self._ended:
+            raise StopIteration
         deadline = time.monotonic() + self.timeout
         while True:
             try:
@@ -490,9 +494,10 @@ class PinnedPrefetcher:
                     raise TimeoutError(
                         f"no batch from the prefetch thread in "
                         f"{self.timeout:g} s")
-        if item is self._DONE:
-            raise StopIteration
-        if isinstance(item, Exception):
+        if item is self._DONE or isinstance(item, Exception):
+            self._ended = True      # every later next() raises StopIteration
+            if item is self._DONE:
+                raise StopIteration
             raise item
         (dev, dlens), events, host = item
         if self._cuda:

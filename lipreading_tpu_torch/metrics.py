@@ -33,6 +33,16 @@ def cer(hyp: str, ref: str) -> float:
     return edit_distance(list(hyp), list(ref)) / len(ref)
 
 
+def wer(hyp: str, ref: str) -> float:
+    """Word error rate over whitespace-split words; an empty ref gives 0 for
+    an empty hyp, else 1."""
+    rw = ref.split()
+    hw = hyp.split()
+    if not rw:
+        return 0.0 if not hw else 1.0
+    return edit_distance(hw, rw) / len(rw)
+
+
 def corpus_cer(hyps: list[str], refs: list[str]) -> float:
     """Corpus-level CER: total edits / total ref chars."""
     edits = sum(edit_distance(list(h), list(r)) for h, r in zip(hyps, refs))

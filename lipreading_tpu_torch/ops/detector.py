@@ -28,6 +28,14 @@ def params_to_torch(params: dict[str, np.ndarray],
             for k, v in params.items()}
 
 
+def relu(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.maximum(x, 0)``: half the gradient at exactly 0, as JAX gives
+    it (``torch.relu`` gives none), so that training matches JAX where a
+    unit's input is 0, as it is wherever a zero-bias unit sees only dead
+    inputs."""
+    return torch.maximum(x, x.new_zeros(()))
+
+
 def forward_features(params: dict[str, torch.Tensor], gray64: torch.Tensor):
     """[B, 64, 64] gray (0..255) -> (trunk features [B, 8, 8, 32],
     head [B, 8, 8, 4]), channels last as in the JAX package."""
@@ -40,7 +48,7 @@ def forward_features(params: dict[str, torch.Tensor], gray64: torch.Tensor):
             x = F.conv2d(x, w, stride=stride, padding=k // 2)
             x = x + params[f"{name}/b"].float()[:, None, None]
             if name != "head":
-                x = torch.relu(x)
+                x = relu(x)
                 feats = x
     return feats.permute(0, 2, 3, 1), x.permute(0, 2, 3, 1)
 
@@ -57,7 +65,7 @@ def presence_logits(presence: dict[str, torch.Tensor],
     frozen trunk, which the tracked path thresholds. Its products run in
     full float32: TF32 would move the confidences the threshold reads."""
     with full_float32():
-        h = torch.relu(feats @ presence["w1"].float() + presence["b1"].float())
+        h = relu(feats @ presence["w1"].float() + presence["b1"].float())
         return h @ presence["w2"].float() + presence["b2"].float()
 
 

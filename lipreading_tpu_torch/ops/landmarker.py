@@ -11,8 +11,9 @@ landmarker of the default serving deployment (``landmarker=conv``).
 The convolutions use the JAX package's symmetric padding ``k // 2`` and run
 in full float32 (cuDNN's TF32 off, as for the detector). JAX flattens the
 NHWC activations, so the port's NCHW ones are permuted to NHWC before the
-flatten that ``fc1/w`` reads. Training the landmarker (``init_landmarker``
-and distillation) is not ported here.
+flatten that ``fc1/w`` reads. ``init_landmarker`` draws a fresh landmarker
+(numpy, the JAX package's draw); ``preproc_training.train_conv_landmarker``
+distils the ERT into it.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from lipreading_tpu_torch.ops import roi as roi_ops
+from lipreading_tpu_torch.ops.detector import relu
 from lipreading_tpu_torch.ops.roi import full_float32, true_div
 
 CROP = 64
@@ -32,6 +34,39 @@ LAYERS = (
     ("conv3", 3, 32, 64, 2),
     ("conv4", 3, 64, 96, 2),
 )
+FC_DIM = 256
+
+
+def init_landmarker(seed: int = 0, mean_shape: np.ndarray | None = None,
+                    width: float = 1.0) -> dict[str, np.ndarray]:
+    """Weights as a flat numpy dict in the JAX package's layout (HWIO
+    convolutions), the same draw as its ``init_landmarker``. ``width``
+    scales every channel count (to multiples of 8; the dense layer to
+    multiples of 64); the output layer starts near zero with the mean shape
+    as its bias, so the net starts at the mean shape."""
+    rng = np.random.default_rng(np.random.SeedSequence([0x1A9D, seed]))
+    params: dict[str, np.ndarray] = {}
+    couts = [max(8, int(c * width + 0.5) // 8 * 8)
+             for _, _, _, c, _ in LAYERS]
+    cins = [LAYERS[0][2]] + couts[:-1]
+    for (name, k, _, _, _), cin, cout in zip(LAYERS, cins, couts):
+        fan_in = k * k * cin
+        params[f"{name}/w"] = rng.normal(
+            0, np.sqrt(2.0 / fan_in), size=(k, k, cin, cout)
+        ).astype(np.float32)
+        params[f"{name}/b"] = np.zeros(cout, dtype=np.float32)
+    fc_dim = max(64, int(FC_DIM * width + 0.5) // 64 * 64)
+    flat = (CROP // 16) * (CROP // 16) * couts[-1]
+    params["fc1/w"] = rng.normal(
+        0, np.sqrt(2.0 / flat), size=(flat, fc_dim)
+    ).astype(np.float32)
+    params["fc1/b"] = np.zeros(fc_dim, dtype=np.float32)
+    params["out/w"] = rng.normal(0, 1e-3, size=(fc_dim, 136)).astype(np.float32)
+    params["out/b"] = (
+        mean_shape.astype(np.float32).reshape(136)
+        if mean_shape is not None else np.full(136, 0.5, np.float32)
+    )
+    return params
 
 
 def params_to_torch(params: dict[str, np.ndarray],
@@ -46,6 +81,13 @@ def params_to_torch(params: dict[str, np.ndarray],
     return out
 
 
+def params_to_numpy(params: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """Inverse of ``params_to_torch``: numpy arrays, convolutions as HWIO
+    (the layout of ``landmarker_conv.npz``)."""
+    return {k: (v.detach().permute(2, 3, 1, 0) if v.ndim == 4 else v.detach()
+                ).contiguous().cpu().numpy() for k, v in params.items()}
+
+
 def forward(params: dict[str, torch.Tensor], crop: torch.Tensor) -> torch.Tensor:
     """[B, 64, 64] gray crop (0..255) -> [B, 68, 2] landmarks in box units."""
     x = (true_div(crop.float(), 255.0) - 0.5) / 0.5
@@ -54,9 +96,9 @@ def forward(params: dict[str, torch.Tensor], crop: torch.Tensor) -> torch.Tensor
         for name, k, _, _, stride in LAYERS:
             x = F.conv2d(x, params[f"{name}/w"], stride=stride,
                          padding=k // 2)
-            x = torch.relu(x + params[f"{name}/b"][:, None, None])
+            x = relu(x + params[f"{name}/b"][:, None, None])
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC flatten
-        x = torch.relu(x @ params["fc1/w"] + params["fc1/b"])
+        x = relu(x @ params["fc1/w"] + params["fc1/b"])
         out = x @ params["out/w"] + params["out/b"]
     return out.reshape(-1, 68, 2)
 

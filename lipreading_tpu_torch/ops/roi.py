@@ -53,18 +53,27 @@ def grayscale(frames: torch.Tensor) -> torch.Tensor:
     return f[..., 0] * r + f[..., 1] * g + f[..., 2] * b
 
 
+def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """``jnp.clip``: ``minimum(maximum(x, lo), hi)``, whose gradient splits
+    evenly where ``x`` meets a bound (``torch.clamp`` passes all of it)."""
+    lo = lo if torch.is_tensor(lo) else x.new_tensor(lo)
+    hi = hi if torch.is_tensor(hi) else x.new_tensor(hi)
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
 def _interp_weights_dense(starts, sizes, src_dim: int, out_size: int,
                           subpixel: bool = False) -> torch.Tensor:
     """[N] crop origins and extents along one axis -> [N, out, src_dim]
     bilinear weight matrices with two taps a row (see csrc/roi_sampler.cu
-    for the two box modes)."""
+    for the two box modes). Differentiable in float boxes, with the JAX
+    package's gradient at the clamps."""
     starts = starts.float()[:, None]
     sizes = sizes.float()[:, None]
     js = torch.arange(out_size, dtype=torch.float32, device=starts.device)[None]
     src = (js + 0.5) * true_div(sizes, out_size) - 0.5
-    src = torch.minimum(torch.clamp(src, min=0.0), sizes - 1.0)
+    src = clip(src, 0.0, sizes - 1.0)
     if subpixel:
-        src = torch.clamp(src + starts, 0.0, float(src_dim - 1))
+        src = clip(src + starts, 0.0, float(src_dim - 1))
         i0 = torch.clamp(torch.floor(src), 0.0, float(src_dim - 2))
         frac = src - i0
     else:

@@ -5,7 +5,9 @@ A cascade of S stages; each gathers a pool of P pixels at positions anchored
 to the current shape estimate (anchor landmark + box-normalised offset), then
 K depth-D trees compare pool-pixel differences against thresholds and add
 their leaves' 136-value shape increments. Shapes are stored normalised to the
-square face box: pixel = origin + s * size.
+square face box: pixel = origin + s * size. ``predict`` runs the cascade on
+one frame in numpy (the held-out metric of ``oracle/ert_train.py``), and
+``save`` writes ``ert.npz``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,77 @@ class ERTModel:
     thresh: np.ndarray       # [S, K, Nn] f32, split threshold on pixel diff
     leaves: np.ndarray       # [S, K, Nl, 136] f32, boosted shape increments
 
+    @property
+    def num_stages(self) -> int:
+        return int(self.anchors.shape[0])
+
+    @property
+    def num_trees(self) -> int:
+        return int(self.feat1.shape[1])
+
+    def save(self, path) -> None:
+        np.savez_compressed(
+            path,
+            mean_shape=self.mean_shape,
+            anchors=self.anchors,
+            offsets=self.offsets,
+            feat1=self.feat1,
+            feat2=self.feat2,
+            thresh=self.thresh,
+            leaves=self.leaves,
+        )
+
     @classmethod
     def load(cls, path) -> "ERTModel":
         with np.load(path) as z:
             return cls(**{k: z[k] for k in z.files})
+
+
+def gather_pool(gray: np.ndarray, shape_norm: np.ndarray,
+                box: tuple[float, float, float], anchors: np.ndarray,
+                offsets: np.ndarray) -> np.ndarray:
+    """The P pool intensities for the current shape estimate (nearest pixel
+    by ``floor(x + 0.5)``, clamped into the frame)."""
+    H, W = gray.shape
+    x0, y0, size = box
+    pos = (shape_norm[anchors] + offsets) * size
+    px = np.floor(pos[:, 0] + x0 + 0.5).astype(np.int64)
+    py = np.floor(pos[:, 1] + y0 + 0.5).astype(np.int64)
+    px = np.clip(px, 0, W - 1)
+    py = np.clip(py, 0, H - 1)
+    return gray[py, px].astype(np.float32)
+
+
+def traverse_trees(vals: np.ndarray, feat1: np.ndarray, feat2: np.ndarray,
+                   thresh: np.ndarray) -> np.ndarray:
+    """[P] pool intensities through all K heap-ordered trees at once ->
+    leaf indices [K]; a node goes right when
+    ``vals[f1] - vals[f2] > thresh``."""
+    K, nn = feat1.shape
+    depth = int(np.log2(nn + 1))
+    ks = np.arange(K)
+    node = np.zeros(K, dtype=np.int64)
+    for _ in range(depth):
+        f1 = feat1[ks, node]
+        f2 = feat2[ks, node]
+        th = thresh[ks, node]
+        right = (vals[f1] - vals[f2]) > th
+        node = 2 * node + 1 + right
+    return node - nn
+
+
+def predict(model: ERTModel, gray: np.ndarray,
+            box: tuple[float, float, float]) -> np.ndarray:
+    """The whole cascade on one gray frame and square face box -> [68, 2]
+    landmarks in pixels."""
+    x0, y0, size = (float(v) for v in box)
+    shape = model.mean_shape.astype(np.float32).copy()
+    ks = np.arange(model.num_trees)
+    for s in range(model.num_stages):
+        vals = gather_pool(gray, shape, (x0, y0, size), model.anchors[s],
+                           model.offsets[s])
+        leaf = traverse_trees(vals, model.feat1[s], model.feat2[s],
+                              model.thresh[s])
+        delta = model.leaves[s][ks, leaf].sum(axis=0)
+        shape = shape + delta.reshape(68, 2)
+    return shape * np.float32(size) + np.asarray([x0, y0], dtype=np.float32)

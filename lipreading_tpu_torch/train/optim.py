@@ -20,6 +20,11 @@ from ``torch.optim.AdamW`` and ``clip_grad_norm_``, optax is followed:
 The state is the optax state: one count and the two moment trees; it
 converts to and from the tree ``flax.serialization.to_state_dict`` gives
 for that chain (``state_tree`` / ``load_state_tree``).
+
+``Adam`` is the plain ``optax.adam(learning_rate)`` of the preprocessor
+trainers: the same Adam update without the clip and the weight decay, over
+a flat dict of tensors, at a constant learning rate or on
+``warmup_cosine_lr``'s schedule.
 """
 
 from __future__ import annotations
@@ -49,6 +54,22 @@ def warmup_cosine_lr(count: int, t: TrainConfig) -> float:
     c = f32(min(count - warm, decay))
     cosine = f32(0.5) * (f32(1) + np.cos(f32(math.pi) * c / f32(decay)))
     return float(f32(peak) * (f32(1 - alpha) * cosine + f32(alpha)))
+
+
+def _bias_corrections(inc: int) -> tuple[float, float]:
+    """Adam's bias corrections at count ``inc``, rounded in float32 as optax
+    rounds them."""
+    f32 = np.float32
+    return (float(f32(1) - np.power(f32(B1), f32(inc), dtype=f32)),
+            float(f32(1) - np.power(f32(B2), f32(inc), dtype=f32)))
+
+
+def _adam_direction(g, m, v, bc1: float, bc2: float) -> torch.Tensor:
+    """Update the moments ``m`` and ``v`` in place with the gradient ``g``
+    -> Adam's direction m_hat / (sqrt(v_hat + eps_root) + eps)."""
+    m.mul_(B1).add_(g, alpha=1 - B1)
+    v.mul_(B2).addcmul_(g, g, value=1 - B2)
+    return (m / bc1) / (torch.sqrt(v / bc2 + EPS_ROOT) + EPS)
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -82,17 +103,11 @@ class AdamW:
         mul = torch.where(trigger, torch.ones_like(norm), clip)
         lr = warmup_cosine_lr(self.count, self.t)
         inc = self.count + 1
-        # bias corrections in float32, as optax rounds them
-        f32 = np.float32
-        bc1 = f32(1) - np.power(f32(B1), f32(inc), dtype=f32)
-        bc2 = f32(1) - np.power(f32(B2), f32(inc), dtype=f32)
+        bc1, bc2 = _bias_corrections(inc)
         wd = self.t.weight_decay
         for k, g in zip(names, grads):
-            p, m, v = self.params[k], self.mu[k], self.nu[k]
-            g = g / div * mul
-            m.mul_(B1).add_(g, alpha=1 - B1)
-            v.mul_(B2).addcmul_(g, g, value=1 - B2)
-            u = (m / float(bc1)) / (torch.sqrt(v / float(bc2) + EPS_ROOT) + EPS)
+            p = self.params[k]
+            u = _adam_direction(g / div * mul, self.mu[k], self.nu[k], bc1, bc2)
             u = u + wd * p
             p.add_(u, alpha=-lr)
         self.count = inc
@@ -134,3 +149,32 @@ class AdamW:
                                      f"{arr.shape}, want {tuple(t.shape)}")
                 t.copy_(torch.from_numpy(np.array(arr, np.float32)))
         self.count = counts.pop()
+
+
+class Adam:
+    """``optax.adam(learning_rate)`` over a flat dict of leaf tensors (the
+    preprocessor trainers' weights): no clip, no weight decay. ``lr`` is a
+    constant, or a ``TrainConfig`` whose ``warmup_cosine_lr`` schedule is
+    read at the count before each update (as optax reads it)."""
+
+    def __init__(self, params: dict[str, torch.Tensor],
+                 lr: float | TrainConfig):
+        self.params = params
+        self.lr = lr
+        self.count = 0
+        self.mu = {k: torch.zeros_like(p) for k, p in params.items()}
+        self.nu = {k: torch.zeros_like(p) for k, p in params.items()}
+
+    @torch.no_grad()
+    def update(self) -> None:
+        """Apply one update from the parameters' ``.grad`` (None counts as
+        zero), then clear the gradients."""
+        lr = (warmup_cosine_lr(self.count, self.lr)
+              if isinstance(self.lr, TrainConfig) else self.lr)
+        self.count += 1
+        bc1, bc2 = _bias_corrections(self.count)
+        for k, p in self.params.items():
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            p.add_(_adam_direction(g, self.mu[k], self.nu[k], bc1, bc2),
+                   alpha=-lr)
+            p.grad = None

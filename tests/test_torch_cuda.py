@@ -696,3 +696,54 @@ def test_stream_on_the_card_matches_the_cpu(cuda):
             assert (roi.sample_rois.launches - before
                     == len(hyps) + st.cut_events)
     assert out["cuda"] == out["cpu"]
+
+
+def _weights_rel(a: dict, b: dict) -> float:
+    """|a - b| / |b| over all the weights of two numpy dicts."""
+    num = sum(float(((a[k] - b[k]).astype(np.float64) ** 2).sum()) for k in b)
+    den = sum(float((b[k].astype(np.float64) ** 2).sum()) for k in b)
+    return (num / den) ** 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trainer", ["detector", "presence", "landmarker",
+                                     "landmarker_roi"])
+def test_preproc_trainers_first_steps_match_the_cpu(cuda, trainer):
+    """3 steps of each preprocessor trainer at batch 64 (the presence head
+    full batch) from one start and the same numpy indices: the weights card
+    against CPU within 1e-4 of their norm (float32 sums in other orders; a
+    step moves them ~1e-3 to 1e-2 of their norm), and the landmarker's
+    teacher pass one ROI launch a 512 frames."""
+    from lipreading_tpu_torch import io
+    from lipreading_tpu_torch import preproc_training as pt
+    from lipreading_tpu_torch.fixtures import make_clip, render_faceless_frames
+
+    det, ert = io.load_assets()
+    clips = [make_clip(9100 + i) for i in range(2)]
+    if trainer == "detector":
+        gray, boxes, _ = pt._collect_frames(clips, stride=1)
+
+        def run(d):
+            return pt.train_detector(gray, boxes, steps=3, device=d)
+    elif trainer == "presence":
+        gray, boxes, _ = pt._collect_frames(clips, stride=2)
+        neg = render_faceless_frames(5, 12).astype(np.float32).mean(-1)
+
+        def run(d):
+            feats, y = pt.presence_features(det, gray, neg, boxes, d)
+            init = pt.init_presence_head(feats.shape[-1], 0)
+            return pt.fit_presence_head(init, feats, y, steps=3)
+    else:
+        w = 1.0 if trainer == "landmarker_roi" else 0.0
+
+        def run(d):
+            return pt.train_conv_landmarker(det, ert, clips, steps=3,
+                                            roi_loss_weight=w, verbose=False,
+                                            device=d)
+    before = roi.sample_rois.launches
+    got = run("cuda")
+    launched = roi.sample_rois.launches - before
+    frames = sum(c.num_frames for c in clips)
+    assert launched == (-(-frames // pt.TEACHER_CHUNK)
+                        if trainer.startswith("landmarker") else 0)
+    assert _weights_rel(got, run("cpu")) <= 1e-4

@@ -163,6 +163,36 @@ def test_prefetcher_raises_the_thread_error_and_times_out():
     assert not pf.thread.is_alive()
 
 
+def test_prefetcher_stays_ended_past_its_end_and_its_error():
+    """``next`` twice past the end, and twice past a surfaced error, raises
+    StopIteration each time (the JAX ``Prefetcher`` blocks there)."""
+    one = (np.zeros((1, 1, 1, 1, 3), np.uint8), np.zeros(1, np.int32), [])
+    pf = tpipe.PinnedPrefetcher(iter([one]), "cpu", timeout=30)
+    try:
+        _run_with_timeout(lambda: next(pf))
+        for _ in range(3):
+            with pytest.raises(StopIteration):
+                _run_with_timeout(lambda: next(pf))
+    finally:
+        pf.close()
+
+    def bad():
+        yield one
+        raise ValueError("decode went wrong")
+
+    pf = tpipe.PinnedPrefetcher(bad(), "cpu", timeout=30)
+    try:
+        _run_with_timeout(lambda: next(pf))
+        with pytest.raises(ValueError, match="decode went wrong"):
+            _run_with_timeout(lambda: next(pf))
+        for _ in range(2):
+            with pytest.raises(StopIteration):
+                _run_with_timeout(lambda: next(pf))
+    finally:
+        pf.close()
+    assert not pf.thread.is_alive()
+
+
 def test_iter_batches_pads_the_ragged_tail():
     clips = [np.full((t, 2, 2, 3), t, np.uint8) for t in (3, 7, 5)]
     out = list(iter_batches(iter(clips), 3, 2, 6, (2, 2)))
