@@ -231,6 +231,28 @@ the teacher crop's shape; and the transcript gate (the
 ``transformer_hybrid_universal`` release behind both landmarkers, beam 8,
 LM 0.4) with the card's transcripts equal to the CPU's.
 
+Multi-GPU training adds one phase, ``[multigpu]``, last: 4 ranks spawned
+from this process (the kernels already built), one card each over NCCL
+where 4 cards exist, else all on ``cuda:0`` over gloo (a log line says
+which, and that ranks sharing one card give no scaling figure). Each rank
+runs the release at full width (dropout and jitter off, labels rolled by
+one sample since the release fits the fixtures' own) through ``Trainer``
+in four layouts of ``MG_LAYOUTS``: DP 4 and DP 2 x TP 2 on the training
+corpus's 8 samples, DP 2 x SP 2 (ring attention) and DP 2 x PP 2 (flash
+on, 2 microbatches) on ``[train-flash]``'s long batch; ``MG_STEPS``
+steps each, every rank's losses and norms equal, and against the same
+global batch's one-process steps on the card: the first step's reduced
+gradient, every step's loss and norm and the parameters after, within
+``MG_LIMITS``, which each planted fault (the data axis's all-reduce
+dropped, each rank's local mean for the global denominator, the frontend
+summed over the model axis under PP) must break; rank 0's ms a step and
+each rank's launches of rows 3-7 a step; a fused DP 4 step (each rank
+preprocessing its own rows: one ROI launch a rank, its loss against the
+one-process fused step); the DP 2 x TP 2 checkpoint rank 0 wrote,
+restored and saved again by one process, byte-equal; and one DP step over
+NCCL with a single rank (its collectives counted, its loss equal to the
+one-process step's).
+
 Each kernel row's ``launches_by_path`` holds its launches on each of these
 paths' runs.
 
@@ -450,6 +472,38 @@ LMK_ERR_LIMIT = 1e-4        # px, the card-trained weights' error card vs CPU
 PRE_ERT = dict(stages=2, trees=96, depth=4, pool=128)
 PRE_GATE_CLIPS = 2
 PRE_GATE_RELEASE = "transformer_hybrid_universal"
+# [multigpu]: 4 ranks (NCCL, one card each, with 4 cards; else all on
+# cuda:0 over gloo), the release at full width, dropout and jitter off,
+# the labels rolled by one sample
+MG_RANKS = 4
+MG_STEPS = 3
+MG_JOIN_S = 600.0           # s from the ranks' start to their join
+MG_BASE = {"model.dropout": 0.0, "train.roi_augment": 0.0,
+           "train.warmup_steps": 0}
+# layout -> (its overrides, its batch: the training corpus's 8 samples or
+# [train-flash]'s long batch of 4 clips at T 1024)
+MG_LAYOUTS = {
+    "dp4": ({"mesh.data_parallel": 4}, "short"),
+    "dp2tp2": ({"mesh.data_parallel": 2, "mesh.model_parallel": 2}, "short"),
+    "dp2sp2": ({"mesh.data_parallel": 2, "mesh.model_parallel": 2,
+                "mesh.sequence_parallel": True}, "long"),
+    "dp2pp2": ({"mesh.data_parallel": 2, "mesh.model_parallel": 2,
+                "mesh.pipeline_parallel": True,
+                "mesh.pipeline_microbatches": 2,
+                "model.flash_attention": True}, "long"),
+}
+# planted faults -> the layout they run on
+MG_FAULTS = {"data all-reduce dropped": "dp4",
+             "local mean, not the global denominator": "dp4",
+             "frontend summed over the model axis (PP)": "dp2pp2"}
+# limits (each between the card's readings and the planted faults'):
+# grad_rel / leaf_rel of the first step's reduced gradient, loss_rel and
+# norm_rel of every step on every rank, param_rel after MG_STEPS steps
+# (card, gloo, first call: grad_rel 2.0e-3-1.2e-2, leaf_rel 3.2e-3-8.5e-2,
+# loss_rel <= 2.2e-4, norm_rel <= 3.7e-3, param_rel <= 2.8e-4; the faults
+# grad_rel 0.39-2.99, leaf_rel 1.00-3.15)
+MG_LIMITS = {"grad_rel": 5e-2, "leaf_rel": 2e-1, "loss_rel": 2e-3,
+             "norm_rel": 2e-2, "param_rel": 2e-3}
 
 
 class SmokeError(RuntimeError):
@@ -4756,6 +4810,413 @@ def phase_preproc_train(pre_futures, rows) -> None:
     log(f"[preproc-train] phase {time.perf_counter() - t_phase:.1f} s")
 
 
+def mg_wrappers() -> dict:
+    """The wrappers of kernel rows 3-7, by row name."""
+    from lipreading_tpu_torch.ops import ctc, flash_attention as fa
+
+    return {w.__name__: w for w in (ctc.ctc_lattice_fwd, ctc.ctc_lattice_bwd,
+                                    *fa.WRAPPERS)}
+
+
+def mg_cfg(base, name: str, batch, one: bool = False):
+    """A layout's config: the release's, ``MG_BASE``, the layout's
+    overrides (``one``: its model's alone, for one process) and the global
+    batch's size."""
+    over = {k: v for k, v in MG_LAYOUTS[name][0].items()
+            if not one or k.startswith("model.")}
+    rows = (len(batch["frame_lengths"]) if isinstance(batch, dict)
+            else len(batch.frame_lengths))
+    return base.override(**MG_BASE, **over, **{"data.batch_size": rows})
+
+
+def mg_grads(tr) -> dict:
+    """The trainer's reduced gradients, whole (a collective under tensor
+    parallelism), on the host."""
+    out = {}
+    for k, p in tr.model.named_parameters():
+        g = p.grad.detach()
+        out[k] = (tr.tp.full(k, g) if tr.tp is not None else g).float().cpu()
+    return out
+
+
+def mg_readings(got: dict, want: dict) -> dict:
+    """||got - want|| / ||want|| over every leaf (grad_rel) and the largest
+    over the leaves but the k biases (leaf_rel: their true gradient is 0,
+    softmax ignoring a constant shift, so they hold rounding noise)."""
+    import torch
+
+    g = torch.cat([got[k].reshape(-1) for k in want])
+    w = torch.cat([want[k].reshape(-1) for k in want])
+    leaf = max(float((got[k] - v).norm() / v.norm().clamp_min(1e-30))
+               for k, v in want.items() if not k.endswith(".k.b"))
+    return {"grad_rel": float((g - w).norm() / w.norm()), "leaf_rel": leaf}
+
+
+def mg_reference(tree, base, name: str, batch: dict, path: str) -> dict:
+    """The layout's global batch through a one-process Trainer on the card:
+    MG_STEPS steps' losses and norms, the first step's gradients, the
+    parameters after; saved to ``path`` for the ranks."""
+    import torch
+
+    from lipreading_tpu_torch.train.loop import Trainer
+
+    cfg = mg_cfg(base, name, batch, one=True)
+    tr = Trainer(cfg, os.path.join(os.path.dirname(path), f"one_{name}"),
+                 device="cuda")
+    tr.logger.echo = False
+    tr.warm_start(tree)
+    ref = {"loss": [], "grad_norm": [], "ms": []}
+    for i in range(MG_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.train_step(batch)
+        torch.cuda.synchronize()
+        ref["ms"].append((time.perf_counter() - t0) * 1e3)
+        ref["loss"].append(float(m["loss"]))
+        ref["grad_norm"].append(float(m["grad_norm"]))
+        if i == 0:
+            ref["grads"] = mg_grads(tr)
+    ref["params"] = {k: v.float().cpu()
+                     for k, v in tr.model.state_dict().items()}
+    torch.save(ref, path)
+    return ref
+
+
+def multigpu_rank(rank: int, world: int, tmp: str, backend: str) -> dict:
+    """One rank of ``[multigpu]`` (spawned): every layout's MG_STEPS steps
+    on this rank's rows, with its readings against the one-process steps
+    (``mg_reference``), its launches of rows 3-7 and rank 0's ms a step;
+    the TP checkpoint; then each planted fault's first-step reading."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    import torch
+    import torch.distributed as dist
+
+    from lipreading_tpu_torch.io import load_preprocessors
+    from lipreading_tpu_torch.models import lipreader
+    from lipreading_tpu_torch.ops.roi import sample_rois
+    from lipreading_tpu_torch.parallel import comm
+    from lipreading_tpu_torch.parallel.mesh import shard_batch
+    from lipreading_tpu_torch.train import loop
+
+    device = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    comm.init(backend, rank, world, store=dist.FileStore(
+        os.path.join(tmp, "store"), world))
+    try:
+        data = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+        tree, base = data["tree"], data["cfg"]
+        wrappers = mg_wrappers()
+        out = {}
+
+        def trainer(name):
+            batch = data[MG_LAYOUTS[name][1]]
+            cfg = mg_cfg(base, name, batch)
+            tr = loop.Trainer(cfg, os.path.join(tmp, name), device=device)
+            tr.logger.echo = False
+            tr.warm_start(tree)
+            return tr, shard_batch(batch, tr.mesh)
+
+        for name in MG_LAYOUTS:
+            ref = torch.load(os.path.join(tmp, f"ref_{name}.pt"),
+                             weights_only=False)
+            tr, local = trainer(name)
+            rec = {"loss": [], "grad_norm": [], "ms": []}
+            reset(wrappers.values())
+            for i in range(MG_STEPS):
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                m = tr.train_step(local)
+                torch.cuda.synchronize(device)
+                rec["ms"].append((time.perf_counter() - t0) * 1e3)
+                rec["loss"].append(float(m["loss"]))
+                rec["grad_norm"].append(float(m["grad_norm"]))
+                if i == 0:
+                    rec.update(mg_readings(mg_grads(tr), ref["grads"]))
+            rec["launches"] = {k: w.launches / MG_STEPS
+                               for k, w in wrappers.items()}
+            params = {k: v.float().cpu()
+                      for k, v in tr.whole_state_dict().items()}
+            p = torch.cat([params[k].reshape(-1) for k in ref["params"]])
+            q = torch.cat([v.reshape(-1) for v in ref["params"].values()])
+            rec["param_rel"] = float((p - q).norm() / q.norm())
+            rec["loss_rel"] = max(abs(a - b) / abs(b) for a, b in
+                                  zip(rec["loss"], ref["loss"]))
+            rec["norm_rel"] = max(abs(a - b) / abs(b) for a, b in
+                                  zip(rec["grad_norm"], ref["grad_norm"]))
+            if name == "dp2tp2":
+                rec["ckpt"] = tr.save()
+            out[name] = rec
+            del tr
+
+        # the fused DP 4 step: each rank preprocesses its own rows
+        det, ert, _ = load_preprocessors("ert", "default", False, device)
+        vb = data["video"]
+        cfg = mg_cfg(base, "dp4", vb)
+        tr = loop.FusedTrainer(cfg, os.path.join(tmp, "fused"), det, ert,
+                               device=device)
+        tr.logger.echo = False
+        tr.warm_start(tree)
+        sample_rois.launches = 0
+        m = tr.train_step(shard_batch(vb, tr.mesh))
+        out["fused"] = {"loss": float(m["loss"]),
+                        "grad_norm": float(m["grad_norm"]),
+                        "roi_launches": sample_rois.launches}
+        del tr
+
+        sum_flat = loop._sum_flat
+        faults = {
+            "data all-reduce dropped": (loop, "_sum_flat", lambda mesh: (
+                lambda ts, axis: None if axis is mesh.data
+                else sum_flat(ts, axis))),
+            "local mean, not the global denominator": (
+                lipreader, "data_total", lambda mesh: (
+                    lambda x, mesh=None: x)),
+            "frontend summed over the model axis (PP)": (
+                loop, "model_reduced", lambda mesh: (
+                    lambda names, cfg, mp: [n for n in names if n.startswith(
+                        ("frontend.", "encoder.layers."))])),
+        }
+        out["faults"] = {}
+        for fault, name in MG_FAULTS.items():
+            ref = torch.load(os.path.join(tmp, f"ref_{name}.pt"),
+                             weights_only=False)
+            tr, local = trainer(name)
+            module, attr, make = faults[fault]
+            with planted(module, attr, make(tr.mesh)):
+                tr.train_step(local)
+            out["faults"][fault] = mg_readings(mg_grads(tr), ref["grads"])
+            del tr
+        return out
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(world: int, fn, args: tuple, tmp: str) -> list:
+    """``fn(rank, world, *args)`` on ``world`` spawned ranks; a rank that
+    fails ends them all; every join has a time limit."""
+    import multiprocessing as mp
+    import pickle
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_rank_entry, args=(r, world, fn, args, tmp))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MG_JOIN_S
+    try:
+        while any(p.is_alive() for p in procs):
+            if (any(p.exitcode not in (None, 0) for p in procs)
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=30)
+    errors = [open(os.path.join(tmp, f"err{r}.txt")).read()
+              for r in range(world)
+              if os.path.exists(os.path.join(tmp, f"err{r}.txt"))]
+    check(not errors, "a rank failed:\n" + "\n".join(errors))
+    check(all(p.exitcode == 0 for p in procs),
+          f"ranks' exit codes {[p.exitcode for p in procs]} (a rank past "
+          f"{MG_JOIN_S:g} s is killed)")
+    results = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"out{r}.pkl"), "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+def _rank_entry(rank, world, fn, args, tmp):
+    import pickle
+    import traceback
+
+    try:
+        out = fn(rank, world, tmp, *args)
+        with open(os.path.join(tmp, f"out{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    except BaseException:
+        with open(os.path.join(tmp, f"err{rank}.txt"), "w") as f:
+            f.write(f"rank {rank}:\n{traceback.format_exc()}")
+        raise
+
+
+def mg_nccl_world1(tmp: str, tree, base, batch, ref: dict) -> None:
+    """One DP step over NCCL with one rank: the process group, the mesh's
+    groups and the step's collectives (replicate's broadcast, the
+    denominators', the gradients' and the losses' all-reduces) run on the
+    card; its loss equals the one-process step's."""
+    import torch
+    import torch.distributed as dist
+
+    from lipreading_tpu_torch.parallel import comm
+    from lipreading_tpu_torch.parallel.mesh import make_mesh
+    from lipreading_tpu_torch.train.loop import Trainer
+
+    calls = {"all_reduce_": 0, "broadcast_": 0}
+
+    def counting(name):
+        real = getattr(comm, name)
+
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return real(*a, **k)
+        return wrapped
+
+    comm.init("nccl", 0, 1, store=dist.FileStore(
+        os.path.join(tmp, "nccl_store"), 1))
+    try:
+        check(dist.get_backend() == "nccl", "the NCCL group is not NCCL")
+        cfg = mg_cfg(base, "dp4", batch, one=True)
+        with planted(comm, "all_reduce_", counting("all_reduce_")), \
+                planted(comm, "broadcast_", counting("broadcast_")):
+            tr = Trainer(cfg, os.path.join(tmp, "nccl"), device="cuda",
+                         mesh=make_mesh(cfg.mesh))
+            tr.logger.echo = False
+            tr.warm_start(tree)
+            m = tr.train_step(batch)
+            x = torch.arange(4.0, device="cuda")
+            got = comm.gather_cat(comm.psum(x, tr.mesh.world), tr.mesh.world,
+                                  0)
+            torch.cuda.synchronize()
+        check(torch.equal(got, x), "NCCL psum/all_gather over one rank")
+        rel = abs(float(m["loss"]) - ref["loss"][0]) / abs(ref["loss"][0])
+        log(f"[multigpu] NCCL, world size 1: a DP step ran {calls} "
+            f"collectives on the card; loss {float(m['loss']):.6f}, one "
+            f"process {ref['loss'][0]:.6f} (rel {rel:.2e})")
+        check(calls["all_reduce_"] >= 3 and calls["broadcast_"] >= 1,
+              f"the NCCL step ran too few collectives: {calls}")
+        check(rel <= MG_LIMITS["loss_rel"], f"NCCL step loss rel {rel:.3e}")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_multigpu(gpu, long, rows) -> None:
+    """Multi-GPU training: the four layouts on MG_RANKS ranks against the
+    one-process steps, the planted faults, the TP checkpoint and a DP step
+    over NCCL with one rank."""
+    import dataclasses
+    import filecmp
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lipreading_tpu_torch.data.pipeline import (
+        FixtureVideoDataset,
+        VideoBatchIterator,
+        video_batch_to_device,
+    )
+    from lipreading_tpu_torch.train.loop import Trainer
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= MG_RANKS else "gloo"
+    log(f"[multigpu] {n_cards} CUDA device(s): "
+        + (f"{MG_RANKS} ranks over NCCL, one card each" if backend == "nccl"
+           else f"{MG_RANKS} ranks share cuda:0 over gloo (NCCL takes one "
+           "rank a device; its collectives are staged through host "
+           "memory), so the step times below are ranks sharing one card, "
+           "not a scaling figure"))
+    tree, base = release_train_cfg()
+    ds = FixtureVideoDataset(4, seed=1, cfg=base.data)
+    vb = next(VideoBatchIterator(ds, base.data.batch_size, seed=0))
+    # the labels rolled by one sample (the release already fits the
+    # fixtures' own: loss ~3e-5), each CTC label cut to what its frames
+    # can align
+    vb = dataclasses.replace(vb, **{k: np.roll(getattr(vb, k), 1, 0) for k in
+                                    ("targets", "target_lengths",
+                                     "ctc_labels", "ctc_lengths")})
+    vb.ctc_lengths = np.minimum(vb.ctc_lengths, np.maximum(
+        (vb.frame_lengths - 1) // 2, 1)).astype(vb.ctc_lengths.dtype)
+    fused = make_trainer(mg_cfg(base, "dp4", vb, one=True), tree, gpu,
+                         "cuda", os.path.join(ROOT, "runs", "chip_smoke_mg"))
+
+    def model_batch(v):
+        with torch.no_grad():
+            mb = fused.model_batch(video_batch_to_device(v, fused.device))
+        return {k: t.cpu() for k, t in mb.items()}
+
+    lb = long_batch(long, base.override(**{"data.max_chars": LONG_MAX_CHARS}))
+    lb = dataclasses.replace(lb, **{k: np.roll(getattr(lb, k), 1, 0) for k in
+                                    ("targets", "target_lengths",
+                                     "ctc_labels", "ctc_lengths")})
+    inputs = {"short": model_batch(vb), "long": model_batch(lb),
+              "video": vb, "tree": tree, "cfg": base}
+    fused_loss = float(fused.train_step(vb)["loss"])
+    del fused
+    tmp = tempfile.mkdtemp(prefix="mg_", dir=os.path.join(ROOT, "runs"))
+    try:
+        torch.save(inputs, os.path.join(tmp, "inputs.pt"))
+        refs = {}
+        for name, (_, kind) in MG_LAYOUTS.items():
+            refs[name] = mg_reference(tree, base, name, inputs[kind],
+                                      os.path.join(tmp, f"ref_{name}.pt"))
+        t0 = time.perf_counter()
+        res = spawn_ranks(MG_RANKS, multigpu_rank, (backend,), tmp)
+        log(f"[multigpu] {MG_RANKS} ranks ran every layout and fault in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for name in MG_LAYOUTS:
+            recs = [r[name] for r in res]
+            r0 = recs[0]
+            worst = {k: max(r[k] for r in recs) for k in
+                     ("grad_rel", "leaf_rel", "loss_rel", "norm_rel",
+                      "param_rel")}
+            log(f"[multigpu] {name}: loss {r0['loss']} (one process "
+                f"{refs[name]['loss']}), grad_norm {r0['grad_norm']}; worst "
+                f"over ranks {worst}; rank 0 ms a step "
+                f"{[round(x, 2) for x in r0['ms']]} (one process "
+                f"{[round(x, 2) for x in refs[name]['ms']]}); launches a rank "
+                f"a step {r0['launches']}")
+            for r in recs:
+                check(r["loss"] == r0["loss"] and
+                      r["grad_norm"] == r0["grad_norm"],
+                      f"{name}: the ranks read other losses or norms")
+            for k, v in worst.items():
+                check(v <= MG_LIMITS[k], f"{name}: {k} {v:.3e} above "
+                      f"{MG_LIMITS[k]:g}")
+            path_launches(rows, f"multigpu {name} (a rank a step)",
+                          r0["launches"])
+            check(r0["launches"]["ctc_lattice_fwd"] == 1
+                  and r0["launches"]["ctc_lattice_bwd"] == 1,
+                  f"{name}: not one launch of each CTC kernel a step")
+        check(res[0]["dp2pp2"]["launches"]["flash_fwd"] > 0,
+              "dp2pp2: no flash launch")
+        rel = max(abs(r["fused"]["loss"] - fused_loss) / abs(fused_loss)
+                  for r in res)
+        log(f"[multigpu] fused DP 4 step (each rank preprocesses its own "
+            f"rows): loss {res[0]['fused']['loss']:.6f}, one process "
+            f"{fused_loss:.6f} (rel {rel:.2e}); ROI launches a rank "
+            f"{[r['fused']['roi_launches'] for r in res]}")
+        check(all(r["fused"]["roi_launches"] == 1 for r in res),
+              "fused DP 4: not one ROI launch a rank")
+        check(rel <= MG_LIMITS["loss_rel"], f"fused DP 4 loss rel {rel:.3e}")
+        path_launches(rows, "multigpu fused dp4 (a rank a step)",
+                      {"roi_sampler": res[0]["fused"]["roi_launches"]})
+        for fault, reading in res[0]["faults"].items():
+            log(f"[multigpu] planted fault, {fault}: {reading}")
+            check(reading["grad_rel"] > MG_LIMITS["grad_rel"]
+                  or reading["leaf_rel"] > MG_LIMITS["leaf_rel"],
+                  f"the planted fault ({fault}) passes the limits")
+        path = res[0]["dp2tp2"]["ckpt"]
+        one = Trainer(mg_cfg(base, "dp2tp2", inputs["short"], one=True),
+                      os.path.join(tmp, "one_ckpt"), device="cuda")
+        one.logger.echo = False
+        one.restore(path)
+        same = filecmp.cmp(one.save(), path, shallow=False)
+        log(f"[multigpu] the DP 2 x TP 2 checkpoint rank 0 wrote, restored "
+            f"and saved by one process: byte-equal {same}")
+        check(same, "the TP checkpoint is not the one-process file")
+        mg_nccl_world1(tmp, tree, base, inputs["short"], refs["dp4"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[multigpu] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     t_start = time.perf_counter()
@@ -4818,6 +5279,7 @@ def main() -> int:
         phase_stream(rows)
         phase_demo(rows)
         phase_preproc_train(pre_futures, rows)
+        phase_multigpu(gpu, long, rows)
     except Exception as e:  # every phase failure ends here, without a result
         import traceback
 

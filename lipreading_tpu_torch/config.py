@@ -3,8 +3,8 @@
 A copy of the fields of ``lipreading_tpu/config.py``, so that a release's
 ``.json`` sidecar loads unchanged through ``from_dict`` and a config written
 here (a training workdir's, an exported release's) reads the same in the
-JAX package. The mesh section is carried and never read: this package runs
-on one device.
+JAX package. The mesh section lays out multi-GPU training
+(``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -107,7 +107,11 @@ class TrainConfig:
 
 @dataclass
 class MeshConfig:
-    """The JAX package's device mesh; carried, never read here."""
+    """The mesh of ranks training runs over (``parallel/mesh.make_mesh``):
+    data x model, the model axis carrying tensor parallelism, or sequence
+    parallelism (ring attention) or a GPipe pipeline of
+    ``pipeline_microbatches`` (0: one per stage). The axis names are the
+    JAX package's, kept so a config reads the same in both."""
 
     data_axis: str = "data"
     model_axis: str = "model"

@@ -104,16 +104,32 @@ class BucketedDataset:
 class BatchIterator:
     """Endless epochs of full batches: per epoch a seeded permutation,
     grouped by bucket into batches (a ragged remainder is dropped), the
-    batches shuffled; ``state`` resumes it."""
+    batches shuffled; ``state`` resumes it. ``shard=(index, count)`` yields
+    part ``index`` of each global batch of ``batch_size`` (a data rank's
+    rows, in the one-device order; the counterpart of
+    ``shard_host_local_batch``'s per-host input)."""
 
     def __init__(self, dataset: BucketedDataset, batch_size: int,
-                 seed: int = 0, epoch: int = 0, pos: int = 0):
+                 seed: int = 0, epoch: int = 0, pos: int = 0,
+                 shard: tuple[int, int] = (0, 1)):
+        index, count = shard
+        if batch_size % count or not 0 <= index < count:
+            raise ValueError(f"a batch of {batch_size} does not split into "
+                             f"part {index} of {count}")
         self.ds = dataset
         self.batch_size = batch_size
+        self.shard = shard
         self.seed = seed
         self.epoch = epoch
         self.pos = pos
         self._plan = self._make_plan(epoch)
+
+    def _rows(self, members: list[int]) -> list[int]:
+        """This part's rows of a global batch: the ``index``-th of
+        ``count`` equal runs, in order."""
+        index, count = self.shard
+        n = len(members) // count
+        return members[index * n:(index + 1) * n]
 
     def _make_plan(self, epoch: int) -> list[list[int]]:
         rng = np.random.default_rng(
@@ -134,10 +150,11 @@ class BatchIterator:
 
     @classmethod
     def from_state(cls, dataset: BucketedDataset, batch_size: int,
-                   state: dict) -> "BatchIterator":
+                   state: dict, shard: tuple[int, int] = (0, 1)
+                   ) -> "BatchIterator":
         """Resume at a saved ``state`` (epoch, position, seed)."""
         return cls(dataset, batch_size, seed=state["seed"],
-                   epoch=state["epoch"], pos=state["pos"])
+                   epoch=state["epoch"], pos=state["pos"], shard=shard)
 
     def __iter__(self):
         return self
@@ -150,7 +167,7 @@ class BatchIterator:
             if not self._plan:
                 raise RuntimeError(
                     f"dataset too small for batch_size={self.batch_size}")
-        batch = self.ds.make_batch(self._plan[self.pos])
+        batch = self.ds.make_batch(self._rows(self._plan[self.pos]))
         self.pos += 1
         return batch
 

@@ -97,12 +97,20 @@ class FixtureVideoDataset:
 class VideoBatchIterator:
     """Deterministic, resumable iterator over raw-frame batches: per epoch, a
     seeded permutation of the samples, grouped by time bucket into full
-    batches, the batches shuffled."""
+    batches, the batches shuffled. ``shard=(index, count)`` yields part
+    ``index`` of each global batch (a data rank's rows, as
+    ``BatchIterator``)."""
 
     def __init__(self, dataset: FixtureVideoDataset, batch_size: int,
-                 seed: int = 0, epoch: int = 0, pos: int = 0):
+                 seed: int = 0, epoch: int = 0, pos: int = 0,
+                 shard: tuple[int, int] = (0, 1)):
+        index, count = shard
+        if batch_size % count or not 0 <= index < count:
+            raise ValueError(f"a batch of {batch_size} does not split into "
+                             f"part {index} of {count}")
         self.ds = dataset
         self.batch_size = batch_size
+        self.shard = shard
         self.seed = seed
         self.epoch = epoch
         self.pos = pos
@@ -111,16 +119,24 @@ class VideoBatchIterator:
 
     @classmethod
     def from_state(cls, dataset: FixtureVideoDataset, batch_size: int,
-                   state: dict) -> "VideoBatchIterator":
+                   state: dict, shard: tuple[int, int] = (0, 1)
+                   ) -> "VideoBatchIterator":
         """Resume at a saved ``state`` (epoch, position, seed)."""
         return cls(dataset, batch_size, seed=state["seed"],
-                   epoch=state["epoch"], pos=state["pos"])
+                   epoch=state["epoch"], pos=state["pos"], shard=shard)
 
     def _bucket_for(self, t: int) -> int:
         for b in self.buckets:
             if t <= b:
                 return b
         return self.buckets[-1]
+
+    def _rows(self, members: list[int]) -> list[int]:
+        """This part's rows of a global batch: the ``index``-th of
+        ``count`` equal runs, in order."""
+        index, count = self.shard
+        n = len(members) // count
+        return members[index * n:(index + 1) * n]
 
     def _make_plan(self, epoch):
         rng = np.random.default_rng(
@@ -154,7 +170,7 @@ class VideoBatchIterator:
                 raise RuntimeError("dataset too small for batch size")
         bucket, idx = self._plan[self.pos]
         self.pos += 1
-        return self.ds.batch(idx, bucket)
+        return self.ds.batch(self._rows(idx), bucket)
 
 
 def video_batch_to_device(batch: VideoBatch, device) -> dict:

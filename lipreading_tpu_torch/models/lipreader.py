@@ -14,7 +14,10 @@ Every family of the JAX package's ``init_model``:
                                     att_weight * cross-entropy
 
 The attention decoder is the Bahdanau GRU decoder (``models/attention.py``)
-after the bi-GRU and the transformer decoder after the transformer.
+after the bi-GRU and the transformer decoder after the transformer. Over a
+mesh of ranks (``parallel/mesh.py``) ``encode`` routes the transformer
+encoder through ring attention or the GPipe pipeline, and each loss
+divides by its global denominator (``data_total``).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from lipreading_tpu_torch.models.transformer import (
     TransformerEncoder,
 )
 from lipreading_tpu_torch.ops.ctc import ctc_loss_best
+from lipreading_tpu_torch.parallel.comm import all_reduce_
 
 
 def _act_dtype(cfg: Config) -> torch.dtype:
@@ -148,24 +152,60 @@ def _frontend_remat(model: LipReader, rois: torch.Tensor,
 
 def encode(model: LipReader, cfg: Config, rois: torch.Tensor,
            frame_lengths: torch.Tensor, dtype: torch.dtype | None = None,
-           gen: torch.Generator | None = None):
+           gen: torch.Generator | None = None, mesh=None):
     """[B, T, R, R] + lengths [B] -> [B, T, D] encoder states; ``gen``
     enables dropout (training), None is deterministic. The transformer
     encoder's attention takes the flash kernels when
     ``cfg.model.flash_attention`` is set, with the backward
     ``cfg.model.flash_bwd``; ``cfg.train.remat`` recomputes the frontend in
-    the backward."""
+    the backward.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``; the rois are this rank's rows)
+    routes the transformer encoder as the JAX package does when the model
+    axis is larger than 1: ``cfg.mesh.pipeline_parallel`` through the GPipe
+    encoder (``parallel/pipeline.py``), ``cfg.mesh.sequence_parallel``
+    through ring attention (``parallel/ring.py``), the two exclusive and
+    both refused by the bi-GRU; otherwise the plain encoder (tensor
+    parallel when its layers carry the model axis)."""
     dtype = dtype or _act_dtype(cfg)
     rate = cfg.model.dropout
     if cfg.train.remat and torch.is_grad_enabled():
         feats = _frontend_remat(model, rois, dtype, gen, rate)
     else:
         feats = model.frontend(rois, dtype, gen, rate)
+    mp_live = mesh is not None and mesh.mp > 1
+    sp = mp_live and cfg.mesh.sequence_parallel
+    pp = mp_live and cfg.mesh.pipeline_parallel
+    if sp and pp:
+        raise ValueError(
+            "sequence_parallel and pipeline_parallel are exclusive uses "
+            "of the model mesh axis"
+        )
     if cfg.encoder == "bigru":
+        if sp or pp:
+            raise ValueError(
+                "sequence/pipeline parallelism requires the transformer "
+                "encoder (the bi-GRU is sequential over time)"
+            )
         return model.encoder(feats, frame_lengths, dtype, gen, rate)
+    m = cfg.model
+    if pp:
+        from lipreading_tpu_torch.parallel.pipeline import (
+            pipeline_encoder_apply,
+        )
+
+        return pipeline_encoder_apply(
+            model.encoder, feats, frame_lengths, m.tf_heads, mesh, dtype,
+            microbatches=cfg.mesh.pipeline_microbatches, gen=gen, rate=rate,
+            flash=m.flash_attention, flash_bwd=m.flash_bwd, local_rows=True)
+    if sp:
+        from lipreading_tpu_torch.parallel.ring import ring_encoder_apply
+
+        return ring_encoder_apply(model.encoder, feats, frame_lengths,
+                                  m.tf_heads, mesh, dtype, gen=gen,
+                                  rate=rate, local_rows=True)
     return model.encoder(feats, frame_lengths, dtype, gen, rate,
-                         flash=cfg.model.flash_attention,
-                         flash_bwd=cfg.model.flash_bwd)
+                         flash=m.flash_attention, flash_bwd=m.flash_bwd)
 
 
 def ctc_logits(model: LipReader, enc: torch.Tensor,
@@ -190,23 +230,37 @@ def attention_logits(model: LipReader, cfg: Config, enc: torch.Tensor,
                              cfg.model.dropout)
 
 
+def data_total(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``x`` summed over the mesh's data axis (a loss's denominator: the
+    global count of a batch split over the data ranks); ``x`` itself
+    without a process group."""
+    if mesh is None or mesh.data.group is None:
+        return x
+    return all_reduce_(x.detach().clone(), mesh.data)
+
+
 def cross_entropy_loss(logits: torch.Tensor, targets_out: torch.Tensor,
                        target_lengths: torch.Tensor, pad_id: int = 0,
-                       sample_weight: torch.Tensor | None = None):
+                       sample_weight: torch.Tensor | None = None,
+                       mesh=None):
     """Masked mean cross-entropy of logits [B, L-1, V] against
     ``targets_out = targets[:, 1:]``; positions 0..len-2 are real.
-    ``sample_weight`` [B] scales each sample's mask (0 drops it)."""
+    ``sample_weight`` [B] scales each sample's mask (0 drops it). Under a
+    ``mesh`` the denominator is the global count of target tokens (this
+    rank's share of the global mean)."""
     L = targets_out.shape[1]
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, 2, targets_out.long()[..., None])[..., 0]
     mask = length_mask(target_lengths - 1, L).float()
     if sample_weight is not None:
         mask = mask * sample_weight.float()[:, None]
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return (nll * mask).sum() / torch.clamp(data_total(mask.sum(), mesh),
+                                            min=1.0)
 
 
 def compute_loss(model: LipReader, cfg: Config, batch: dict,
-                 train: bool = True, gen: torch.Generator | None = None):
+                 train: bool = True, gen: torch.Generator | None = None,
+                 mesh=None):
     """The model's loss over a batch dict of tensors on the model's device:
 
         rois           [B, T, R, R]  normalised float32
@@ -219,7 +273,11 @@ def compute_loss(model: LipReader, cfg: Config, batch: dict,
 
     ``gen`` (with ``train``) turns on dropout and the ROI appearance jitter
     (``cfg.train.roi_augment``); None is the JAX package's ``rng=None``.
-    Returns (loss, metrics dict of tensors)."""
+    ``mesh`` (the batch is then this rank's rows) routes the encoder
+    (``encode``) and divides each mean by its global denominator (target
+    tokens, samples or sample weights summed over the data axis): the loss
+    is this rank's share of the global batch's, so the sum of the ranks'
+    gradients is its gradient. Returns (loss, metrics dict of tensors)."""
     t = cfg.train
     rois = batch["rois"]
     if gen is None or not train:
@@ -239,7 +297,7 @@ def compute_loss(model: LipReader, cfg: Config, batch: dict,
                                       device=rois.device, dtype=rois.dtype)
         rois = rois * gain + bias + noise
     lengths = batch["frame_lengths"]
-    enc = encode(model, cfg, rois, lengths, gen=gen)
+    enc = encode(model, cfg, rois, lengths, gen=gen, mesh=mesh)
     metrics = {}
     loss = torch.zeros((), device=enc.device)
     sw = batch.get("sample_weight")
@@ -247,12 +305,15 @@ def compute_loss(model: LipReader, cfg: Config, batch: dict,
         nll = ctc_loss_best(ctc_logits(model, enc), batch["ctc_labels"],
                             lengths, batch["ctc_lengths"])
         per = nll / torch.clamp(batch["ctc_lengths"].float(), min=1.0)
-        if sw is None:
+        if sw is None and (mesh is None or mesh.data.group is None):
             lc = per.mean()
+        elif sw is None:
+            lc = per.sum() / data_total(
+                torch.tensor(float(per.shape[0]), device=per.device), mesh)
         else:
             # where() before weighting: an infeasible sample's nll is ~1e30
             per = torch.where(sw > 0, per, 0.0)
-            lc = per.sum() / torch.clamp(sw.sum(), min=1.0)
+            lc = per.sum() / torch.clamp(data_total(sw.sum(), mesh), min=1.0)
         w = t.ctc_weight if cfg.decoder == "hybrid" else 1.0
         loss = loss + w * lc
         metrics["ctc_loss"] = lc
@@ -260,7 +321,8 @@ def compute_loss(model: LipReader, cfg: Config, batch: dict,
         att = attention_logits(model, cfg, enc, lengths, batch["targets"],
                                gen=gen)
         la = cross_entropy_loss(att, batch["targets"][:, 1:],
-                                batch["target_lengths"], sample_weight=sw)
+                                batch["target_lengths"], sample_weight=sw,
+                                mesh=mesh)
         w = t.att_weight if cfg.decoder == "hybrid" else 1.0
         loss = loss + w * la
         metrics["att_loss"] = la

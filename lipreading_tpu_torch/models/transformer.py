@@ -15,6 +15,12 @@ residual branch in training. The decoder's incremental step reads and
 writes a KV cache in the activation type, with the cross-attention K/V
 computed once per decode (the beams of ``ops/decode.py`` and
 ``ops/joint_decode.py`` step it).
+
+Tensor parallelism (``parallel/mesh.py``, training under
+``mesh.model_parallel`` > 1 without sequence or pipeline parallelism)
+splits ``MHA`` and ``MLP`` in the Megatron layout; without a model axis the
+code path is the one-device one. The incremental decoder runs on whole
+parameters only.
 """
 
 from __future__ import annotations
@@ -31,10 +37,12 @@ from lipreading_tpu_torch.models.nn import (
     Dense,
     Embedding,
     LayerNorm,
+    dense,
     dropout,
     length_mask,
 )
 from lipreading_tpu_torch.ops.flash_attention import check_bwd, flash_attention
+from lipreading_tpu_torch.parallel.comm import copy, psum
 
 
 def sinusoidal_positions(max_len: int, dim: int) -> np.ndarray:
@@ -47,43 +55,80 @@ def sinusoidal_positions(max_len: int, dim: int) -> np.ndarray:
     return out
 
 
+def _row_parallel(d: Dense, x: torch.Tensor, dtype, axis) -> torch.Tensor:
+    """A dense layer split by input rows over ``axis``: the partial products
+    summed over it, then the (replicated) bias added once."""
+    y = psum(dense(x, d.w, None, dtype), axis)
+    return y + d.b.to(dtype if dtype is not None else y.dtype)
+
+
 class MHA(nn.Module):
+    """Multi-head attention. ``model_axis`` (set by
+    ``parallel.mesh.shard_params_``) makes it tensor-parallel: q, k and v
+    hold this rank's output columns (its heads), ``o`` its input rows; the
+    inputs pass ``copy`` and the output ``psum``. None is one device."""
+
+    model_axis = None
+
     def __init__(self, dim: int):
         super().__init__()
         self.q, self.k, self.v, self.o = (Dense(dim, dim) for _ in range(4))
+
+    def split(self, q_in, kv_in, heads: int):
+        """The inputs as this rank sees them and its number of heads."""
+        ax = self.model_axis
+        if ax is None:
+            return q_in, kv_in, heads
+        same = kv_in is q_in
+        q_in = copy(q_in, ax)
+        kv_in = q_in if same else copy(kv_in, ax)
+        return q_in, kv_in, heads // ax.size
+
+    def out(self, x, dtype=None):
+        if self.model_axis is None:
+            return self.o(x, dtype)
+        return _row_parallel(self.o, x, dtype, self.model_axis)
 
     def forward(self, q_in, kv_in, mask, heads: int, dtype=None):
         """mask: [B, 1, Tq|1, Tk] bool (True = attend)."""
         B, Tq, D = q_in.shape
         Tk = kv_in.shape[1]
         Dh = D // heads
+        q_in, kv_in, heads = self.split(q_in, kv_in, heads)
         q = self.q(q_in, dtype).reshape(B, Tq, heads, Dh)
         k = self.k(kv_in, dtype).reshape(B, Tk, heads, Dh)
         v = self.v(kv_in, dtype).reshape(B, Tk, heads, Dh)
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(Dh)
         scores = torch.where(mask, scores.float(), -1e30)
         w = torch.softmax(scores, dim=-1).to(q.dtype)
-        out = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, Tq, D)
-        return self.o(out, dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, Tq, heads * Dh)
+        return self.out(out, dtype)
 
 
 def mha_flash(p: MHA, x: torch.Tensor, lengths: torch.Tensor, heads: int,
               dtype: torch.dtype | None = None,
               bwd: str = "auto") -> torch.Tensor:
     """Encoder self-attention through the flash kernels: ``MHA``'s
-    projections around ``flash_attention``'s core; ``bwd`` is its backward
-    policy (``cfg.model.flash_bwd``)."""
+    projections around ``flash_attention``'s core (on this rank's heads
+    under tensor parallelism); ``bwd`` is its backward policy
+    (``cfg.model.flash_bwd``)."""
     B, T, D = x.shape
     Dh = D // heads
+    x, _, heads = p.split(x, x, heads)
     q = p.q(x, dtype).reshape(B, T, heads, Dh)
     k = p.k(x, dtype).reshape(B, T, heads, Dh)
     v = p.v(x, dtype).reshape(B, T, heads, Dh)
     lengths = lengths.to(device=x.device, dtype=torch.int32)
-    out = flash_attention(q, k, v, lengths, bwd=bwd).reshape(B, T, D)
-    return p.o(out, dtype)
+    out = flash_attention(q, k, v, lengths, bwd=bwd).reshape(B, T, heads * Dh)
+    return p.out(out, dtype)
 
 
 class MLP(nn.Module):
+    """``out(gelu(in(x)))``; under ``model_axis`` ``in`` holds this rank's
+    columns and ``out`` its rows, as in ``MHA``."""
+
+    model_axis = None
+
     def __init__(self, dim: int, hidden: int):
         super().__init__()
         # "in" is the parameter name in the release tree
@@ -91,8 +136,13 @@ class MLP(nn.Module):
         self.out = Dense(hidden, dim)
 
     def forward(self, x, dtype=None):
+        ax = self.model_axis
+        if ax is not None:
+            x = copy(x, ax)
         h = F.gelu(getattr(self, "in")(x, dtype), approximate="tanh")
-        return self.out(h, dtype)
+        if ax is None:
+            return self.out(h, dtype)
+        return _row_parallel(self.out, h, dtype, ax)
 
 
 class EncoderLayer(nn.Module):

@@ -44,10 +44,29 @@ optimizer, step 0); ``resume=1`` continues from the latest checkpoint in
 ``workdir``, data position included. Any dotted config field can be
 overridden (``train.learning_rate=1e-4``). It runs on the GPU unless
 ``device=cpu`` is given.
+
+Several GPUs: one process a rank under ``torch.distributed.run``, the
+``mesh.*`` overrides picking the layout of the model axis::
+
+    python -m torch.distributed.run --nproc_per_node=4 \
+        -m lipreading_tpu_torch.train mesh.data_parallel=2 \
+        mesh.model_parallel=2 [mesh.sequence_parallel=1 | \
+        mesh.pipeline_parallel=1 mesh.pipeline_microbatches=2] \
+        [dist_backend=nccl|gloo] ...
+
+With ``WORLD_SIZE`` set it reads ``RANK`` and ``LOCAL_RANK``, runs rank r on
+``cuda:<LOCAL_RANK>`` (or the ``device=`` given: ``device=cuda:0`` puts
+every rank on one card, which needs ``dist_backend=gloo``) and initialises
+the process group over ``dist_backend`` (``nccl`` by default on the GPU,
+``gloo`` on the CPU) with a timeout. Each rank draws its rows of every
+global batch of ``data.batch_size``; rank 0 builds the fixture dataviews
+(the others wait), prints, logs and writes the checkpoints. Without
+``WORLD_SIZE`` it runs in this one process.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 
@@ -116,6 +135,7 @@ def main(argv: list[str]) -> dict:
     n_clips = int(args.pop("n_clips", 24))
     data_seed = int(args.pop("data_seed", 1))
     device = args.pop("device", "cuda")
+    backend = args.pop("dist_backend", None)
     variation, assets_variant = variation_args(args)
     if args:
         cfg = cfg.override(**args)
@@ -131,59 +151,109 @@ def main(argv: list[str]) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     from lipreading_tpu_torch.io import load_preprocessors, load_release
+    from lipreading_tpu_torch.parallel.mesh import make_mesh
     from lipreading_tpu_torch.train.checkpoint import load_checkpoint
     from lipreading_tpu_torch.train.loop import FusedTrainer, Trainer
 
-    if fused:
-        from lipreading_tpu_torch.data.pipeline import (
-            FixtureVideoDataset,
-            VideoBatchIterator as Iterator,
-        )
+    with ranks(device, backend) as device:
+        mesh = make_mesh(cfg.mesh)
+        chief = mesh.rank == 0
+        shard = (mesh.data_index, mesh.dp)
+        if fused:
+            from lipreading_tpu_torch.data.pipeline import (
+                FixtureVideoDataset,
+                VideoBatchIterator as Iterator,
+            )
 
-        det, lmk, presence = load_preprocessors(
-            cfg.preprocess.landmarker, assets_variant, tracked, device)
-        trainer = FusedTrainer(cfg, workdir, det, lmk, device=device,
-                               presence=presence, tracked=tracked)
-        ds = FixtureVideoDataset(n_clips, seed=data_seed, cfg=cfg.data)
-        heldout = FixtureVideoDataset(
-            HELDOUT_CLIPS, seed=data_seed + HELDOUT_SEED_OFFSET, cfg=cfg.data)
-        eval_batches = [heldout.batch(
-            list(range(min(HELDOUT_SAMPLES, len(heldout)))),
-            max(cfg.data.time_buckets))]
-    else:
-        from lipreading_tpu_torch.data.dataset import (
-            BatchIterator as Iterator,
-        )
-
-        ds, eval_batches = _dataview_data(
-            cfg, workdir, dataview_path, n_clips, data_seed, variation,
-            assets_variant, device)
-        trainer = Trainer(cfg, workdir, device=device)
-    if init_from:
-        if os.path.exists(init_from):
-            _, p0, _, _, _ = load_checkpoint(init_from)
-            trainer.warm_start(p0)
-            print(f"warm-started params from {init_from}")
+            det, lmk, presence = load_preprocessors(
+                cfg.preprocess.landmarker, assets_variant, tracked, device)
+            trainer = FusedTrainer(cfg, workdir, det, lmk, device=device,
+                                   presence=presence, tracked=tracked,
+                                   mesh=mesh)
+            ds = FixtureVideoDataset(n_clips, seed=data_seed, cfg=cfg.data)
+            heldout = FixtureVideoDataset(
+                HELDOUT_CLIPS, seed=data_seed + HELDOUT_SEED_OFFSET,
+                cfg=cfg.data)
+            eval_batches = [heldout.batch(
+                list(range(min(HELDOUT_SAMPLES, len(heldout)))),
+                max(cfg.data.time_buckets))]
         else:
-            try:
-                tree, _ = load_release(init_from)
-            except FileNotFoundError:
-                raise SystemExit(f"init_from: no release asset {init_from!r}")
-            trainer.warm_start(tree)
-            print(f"warm-started params from assets/{init_from}")
-    it_state = trainer.restore() if resume else {}
-    if it_state:
-        print(f"resumed at step {trainer.step}")
-    it = (Iterator.from_state(ds, cfg.data.batch_size, it_state)
-          if it_state else
-          Iterator(ds, cfg.data.batch_size, seed=cfg.train.seed))
-    print(f"training {cfg.name} ({cfg.encoder}/{cfg.decoder}) on {len(ds)} "
-          f"samples ({'fused' if fused else 'dataview'}"
-          f"{', tracked' if tracked else ''}), device {trainer.device}")
-    last = trainer.fit(it, steps=steps, eval_batches=eval_batches)
-    trainer.save(it)
-    print("final:", last)
-    return last
+            from lipreading_tpu_torch.data.dataset import (
+                BatchIterator as Iterator,
+            )
+
+            def views():
+                return _dataview_data(cfg, workdir, dataview_path, n_clips,
+                                      data_seed, variation, assets_variant,
+                                      device)
+
+            # rank 0 builds the views that are missing; the others read them
+            if chief:
+                ds, eval_batches = views()
+            if mesh.distributed:
+                mesh.barrier()
+            if not chief:
+                ds, eval_batches = views()
+            trainer = Trainer(cfg, workdir, device=device, mesh=mesh)
+        if init_from:
+            if os.path.exists(init_from):
+                _, p0, _, _, _ = load_checkpoint(init_from)
+            else:
+                try:
+                    p0, _ = load_release(init_from)
+                except FileNotFoundError:
+                    raise SystemExit(
+                        f"init_from: no release asset {init_from!r}")
+                init_from = f"assets/{init_from}"
+            trainer.warm_start(p0)
+            if chief:
+                print(f"warm-started params from {init_from}")
+        it_state = trainer.restore() if resume else {}
+        if it_state and chief:
+            print(f"resumed at step {trainer.step}")
+        it = (Iterator.from_state(ds, cfg.data.batch_size, it_state, shard)
+              if it_state else
+              Iterator(ds, cfg.data.batch_size, seed=cfg.train.seed,
+                       shard=shard))
+        if chief:
+            print(f"training {cfg.name} ({cfg.encoder}/{cfg.decoder}) on "
+                  f"{len(ds)} samples ({'fused' if fused else 'dataview'}"
+                  f"{', tracked' if tracked else ''}), device "
+                  f"{trainer.device}, {mesh.devices} device(s)")
+        last = trainer.fit(it, steps=steps, eval_batches=eval_batches)
+        trainer.save(it)
+        if chief:
+            print("final:", last)
+        return last
+
+
+@contextlib.contextmanager
+def ranks(device: str, backend: str | None):
+    """Under ``torch.distributed.run`` (``WORLD_SIZE`` set), this rank's
+    device, with its process group initialised (unless it already is) and
+    destroyed after; otherwise ``device`` as given."""
+    if "WORLD_SIZE" not in os.environ:
+        yield device
+        return
+    import torch
+    import torch.distributed as dist
+
+    from lipreading_tpu_torch.parallel import comm
+
+    if device == "cuda":
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+    if device.startswith("cuda"):
+        torch.cuda.set_device(torch.device(device))
+    if dist.is_initialized():
+        yield device
+        return
+    comm.init(backend or ("nccl" if device.startswith("cuda") else "gloo"),
+              int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]),
+              init_method="env://")
+    try:
+        yield device
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

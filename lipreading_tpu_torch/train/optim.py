@@ -21,6 +21,12 @@ The state is the optax state: one count and the two moment trees; it
 converts to and from the tree ``flax.serialization.to_state_dict`` gives
 for that chain (``state_tree`` / ``load_state_tree``).
 
+Under tensor parallelism (``tp``, a ``parallel.mesh.TensorParallel``) a
+rank holds its part of the sharded parameters and of their moments. The
+clipping norm is optax's over the whole tree: the squares of the sharded
+parts summed over the model axis, the replicated parameters counted once,
+so every rank reads the same norm. The state tree holds the whole moments.
+
 ``Adam`` is the plain ``optax.adam(learning_rate)`` of the preprocessor
 trainers: the same Adam update without the clip and the weight decay, over
 a flat dict of tensors, at a constant learning rate or on
@@ -78,10 +84,12 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 class AdamW:
-    """Clip-by-global-norm + AdamW over the named parameters of a module."""
+    """Clip-by-global-norm + AdamW over the named parameters of a module
+    (``tp``: its tensor-parallel layout, the module doc)."""
 
-    def __init__(self, module: torch.nn.Module, t: TrainConfig):
+    def __init__(self, module: torch.nn.Module, t: TrainConfig, tp=None):
         self.t = t
+        self.tp = tp
         self.params = dict(module.named_parameters())
         self.count = 0
         self.mu = {k: torch.zeros_like(p) for k, p in self.params.items()}
@@ -94,7 +102,10 @@ class AdamW:
         names = list(self.params)
         grads = [self.params[k].grad if self.params[k].grad is not None
                  else torch.zeros_like(self.params[k]) for k in names]
-        norm = global_norm(grads)
+        if self.tp is None:
+            norm = global_norm(grads)
+        else:
+            norm = self._tp_norm(names, grads)
         clip = torch.as_tensor(self.t.grad_clip, dtype=norm.dtype,
                                device=norm.device)
         trigger = norm < clip
@@ -113,6 +124,19 @@ class AdamW:
         self.count = inc
         return norm
 
+    def _tp_norm(self, names, grads) -> torch.Tensor:
+        """The whole tree's norm: the sharded parts' squares summed over the
+        model axis, the replicated ones counted once."""
+        from lipreading_tpu_torch.parallel.comm import all_reduce_
+
+        zero = grads[0].new_zeros((), dtype=torch.float32)
+        sq = {True: zero, False: zero}
+        for k, g in zip(names, grads):
+            part = k in self.tp.plan
+            sq[part] = sq[part] + torch.sum(torch.square(g.float()))
+        shard = all_reduce_(sq[True].reshape(1).clone(), self.tp.axis)[0]
+        return torch.sqrt(shard + sq[False])
+
     # --- the optax state as flax stores it --------------------------------
 
     def state_tree(self) -> dict:
@@ -122,9 +146,12 @@ class AdamW:
         from lipreading_tpu_torch.io import to_jax_params
 
         count = np.asarray(self.count, np.int32)
+        mu, nu = self.mu, self.nu
+        if self.tp is not None:
+            mu, nu = self.tp.full_state(mu), self.tp.full_state(nu)
         return {"0": {}, "1": {
-            "0": {"count": count, "mu": to_jax_params(self.mu),
-                  "nu": to_jax_params(self.nu)},
+            "0": {"count": count, "mu": to_jax_params(mu),
+                  "nu": to_jax_params(nu)},
             "1": {},
             "2": {"count": count.copy()},
         }}
@@ -143,11 +170,14 @@ class AdamW:
                 node = adam[name]
                 for part in k.split("."):
                     node = node[part]
-                arr = np.asarray(node)
-                if arr.shape != tuple(t.shape):
+                src = torch.from_numpy(np.array(node, np.float32))
+                if self.tp is not None:
+                    src = self.tp.local(k, src)
+                if tuple(src.shape) != tuple(t.shape):
                     raise ValueError(f"optimizer state {name}/{k}: shape "
-                                     f"{arr.shape}, want {tuple(t.shape)}")
-                t.copy_(torch.from_numpy(np.array(arr, np.float32)))
+                                     f"{tuple(src.shape)}, want "
+                                     f"{tuple(t.shape)}")
+                t.copy_(src)
         self.count = counts.pop()
 
 

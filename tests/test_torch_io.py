@@ -179,7 +179,12 @@ def test_port_imports_nothing_of_jax():
             "lipreading_tpu_torch/oracle/roi.py",
             "lipreading_tpu_torch/train_preprocessor.py",
             "lipreading_tpu_torch/train_presence.py",
-            "lipreading_tpu_torch/train_landmarker.py"} <= names
+            "lipreading_tpu_torch/train_landmarker.py",
+            "lipreading_tpu_torch/parallel/__init__.py",
+            "lipreading_tpu_torch/parallel/comm.py",
+            "lipreading_tpu_torch/parallel/mesh.py",
+            "lipreading_tpu_torch/parallel/ring.py",
+            "lipreading_tpu_torch/parallel/pipeline.py"} <= names
     for path in srcs:
         with open(path) as f:
             text = f.read()

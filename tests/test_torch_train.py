@@ -497,7 +497,7 @@ def test_config_override_and_preset_match_jax():
     for name in ("transformer-patchify", "transformer-attn", "bigru-ctc"):
         got = preset(name).override(**parse_overrides(argv))
         want = jpreset(name).override(**parse_overrides(argv))
-        # every field, the mesh section (carried, never read) included
+        # every field, the mesh section included
         assert got.to_dict() == want.to_dict(), name
     with pytest.raises(KeyError):
         got.override(**{"train.nope": 1})
