@@ -231,6 +231,35 @@ the teacher crop's shape; and the transcript gate (the
 ``transformer_hybrid_universal`` release behind both landmarkers, beam 8,
 LM 0.4) with the card's transcripts equal to the CPU's.
 
+The reference contracts add two phases before it:
+
+* ``[parity-gate]``: the fp32 transcript parity gate (TF32 off for the
+  phase, restored after). The ``bigru_ctc`` release at full width in
+  float32 is exported by ``train/importer.export_model_state_dict`` to the
+  reference-shaped torch model of ``tests/torch_ref.py`` (loaded by its
+  path; strict) and imported back bit-exact. On the per-frame oracle's
+  ROIs of make_clip(33000-33004) the port's greedy (kernel 2, one launch)
+  and prefix-beam-16 transcripts on the card must be string-identical to
+  the reference model's greedy and numpy prefix search (width 64) on the
+  CPU; a clip that parts only at frames whose two best CPU logits lie
+  within ``NEAR_TIE_LOGIT`` is printed with its margins and held against
+  the reference run on the card instead. Then the four seeded legs of
+  ``tests/test_parity_gate.py`` at its small widths (CTC greedy, CTC
+  prefix beam with the x64 head, attention greedy, attention beam 4) card
+  against the reference on the CPU, and a planted fault: the GRU's r and
+  z gates swapped in the import must change a transcript;
+* ``[oracle]``: ``oracle.pipeline.run_clip`` on clip 0 equal to
+  ``tests/golden/clip0.npz`` exactly; ``preprocess_frames`` on the card
+  (kernel 1, one launch) over its first 48 frames against it: face boxes
+  and landmarks within 1e-2 (an ERT knife-edge frame, whose face box
+  agrees within 1e-3 px while a nearest-pixel lookup flips, is printed;
+  at most 2), mouth boxes equal, ROIs within 1e-3 (printed as
+  ``parity_max_diff``), which mouth boxes shifted one pixel must break;
+  ``native.preprocess_clip`` (the g++-built host oracle) against it; one
+  frames/s reading each of the numpy oracle, the C++ oracle and the card's
+  preprocess by ``profiling.Timer``; a ``profiling.capture`` trace of a
+  card preprocess that names the ROI kernel (taken again up to 5 times).
+
 Multi-GPU training adds one phase, ``[multigpu]``, last: 4 ranks spawned
 from this process (the kernels already built), one card each over NCCL
 where 4 cards exist, else all on ``cuda:0`` over gloo (a log line says
@@ -504,6 +533,24 @@ MG_FAULTS = {"data all-reduce dropped": "dp4",
 # grad_rel 0.39-2.99, leaf_rel 1.00-3.15)
 MG_LIMITS = {"grad_rel": 5e-2, "leaf_rel": 2e-1, "loss_rel": 2e-3,
              "norm_rel": 2e-2, "param_rel": 2e-3}
+# [parity-gate] and [oracle]: the reference contracts
+PG_FIRST_SEED = 33000       # make_clip(33000 + i), i < PG_CLIPS
+PG_CLIPS = 5
+PG_RELEASE_SEARCH = 64      # the numpy prefix search on the release's posteriors
+PG_SEEDED_SEARCH = 256      # ... on the x64 seeded head's (tests/test_torch_parity_gate.py)
+PG_LEGS = (("ctc greedy", "ctc", 100, 1), ("ctc prefix beam", "ctc", 101, 16),
+           ("attention greedy", "attention", 102, 1),
+           ("attention beam", "attention", 103, 4))
+NEAR_TIE_LOGIT = 1e-5       # two best logits closer than this: a near tie
+ORACLE_FRAMES = 48          # clip 0's first frames through the card's preprocess
+ORACLE_LIMITS = {"face_boxes": 1e-2, "landmarks": 1e-2, "roi": 1e-3}
+# a frame whose landmarks part by more than the limit while its face box
+# agrees within ORACLE_KNIFE_BOX px is an ERT knife edge (a nearest-pixel
+# lookup flips: clip 0 frame 29 parts by 0.111 px in the JAX package's own
+# batched preprocess on the CPU); at most ORACLE_KNIFE_EDGES such frames
+ORACLE_KNIFE_BOX = 1e-3
+ORACLE_KNIFE_EDGES = 2
+ORACLE_DIR = os.path.join(ROOT, "runs", "chip_smoke_oracle")
 
 
 class SmokeError(RuntimeError):
@@ -5217,6 +5264,429 @@ def phase_multigpu(gpu, long, rows) -> None:
     log(f"[multigpu] phase {time.perf_counter() - t_phase:.1f} s")
 
 
+def load_torch_ref():
+    """``tests/torch_ref.py`` (the reference-shaped model and its host
+    decodes; numpy and torch only) loaded by its path: on the card's
+    machine another package named ``tests`` shadows the repo's."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "tests", "torch_ref.py")
+    spec = importlib.util.spec_from_file_location("torch_ref", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def gate_cfg(decoder: str):
+    """The parity gate's small float32 bi-GRU (``tests/test_parity_gate.py``
+    ``_gate_cfg``)."""
+    from lipreading_tpu_torch.config import preset
+
+    cfg = preset("bigru-ctc")
+    cfg.decoder = decoder
+    m = cfg.model
+    m.frontend_channels = (8, 16, 24)
+    m.frontend_dim, m.gru_hidden, m.gru_layers = 64, 48, 2
+    m.attn_dim, m.decoder_hidden = 32, 48
+    m.dtype = "float32"
+    cfg.train.max_decode_len = 24
+    cfg.train.length_penalty = 0.6
+    return cfg
+
+
+def gate_clips():
+    """The per-frame oracle's ROIs of make_clip(33000 + i), zero-padded to
+    their longest -> (rois [B, T, R, R], lengths [B]), as the gate pads."""
+    import numpy as np
+
+    from lipreading_tpu_torch.fixtures import make_clip
+    from lipreading_tpu_torch.io import load_assets
+    from lipreading_tpu_torch.oracle.pipeline import run_clip
+
+    det, ert = load_assets()
+    rois = [run_clip(make_clip(PG_FIRST_SEED + i).frames, det, ert).roi
+            for i in range(PG_CLIPS)]
+    lengths = np.asarray([r.shape[0] for r in rois], np.int32)
+    T = int(lengths.max())
+    return np.stack([np.pad(r, ((0, T - len(r)), (0, 0), (0, 0)))
+                     for r in rois]).astype(np.float32), lengths
+
+
+def prefix_search(lp, lengths, width: int) -> list[str]:
+    """The numpy CTC prefix search on host log-posteriors [B, T, V]."""
+    from lipreading_tpu_torch.ops.ctc_beam import ctc_prefix_beam_search
+    from lipreading_tpu_torch.text import Vocab
+
+    out = []
+    for b in range(lp.shape[0]):
+        ids, _ = ctc_prefix_beam_search(lp[b, :int(lengths[b])],
+                                        beam_width=width,
+                                        prune_topk=lp.shape[-1])
+        out.append(Vocab().decode(ids))
+    return out
+
+
+def ref_logits(ref, rois, lengths):
+    """The reference model's float32 CTC logits [B, T, V] on the host."""
+    import torch
+
+    with torch.no_grad():
+        return ref.ctc_head(ref.encode(rois, lengths)).float().cpu()
+
+
+def near_tie_frames(card_lp, cpu_logits, length: int) -> list:
+    """The frames of one clip where the card's argmax parts from the CPU
+    reference's -> [(frame, the CPU's two best logits' gap)]."""
+    a = card_lp[:length].argmax(-1)
+    b = cpu_logits[:length].argmax(-1)
+    top2 = cpu_logits[:length].topk(2, dim=-1).values
+    return [(int(t), float(top2[t, 0] - top2[t, 1]))
+            for t in (a != b).nonzero().flatten().tolist()]
+
+
+def gate_ctc(tag, got, want, card_lp, cpu_logits, lengths, card_want):
+    """CTC transcripts card vs the CPU reference, clip by clip. A clip that
+    differs only at frames whose CPU logits' two best lie within
+    ``NEAR_TIE_LOGIT`` is a near tie: its margins are printed and the card
+    reference (``card_want``, computed on demand) is its gate."""
+    ties = []
+    for b, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        frames = near_tie_frames(card_lp[b], cpu_logits[b], int(lengths[b]))
+        check(frames and all(m < NEAR_TIE_LOGIT for _, m in frames),
+              f"{tag} clip {b}: card {g!r} != CPU reference {w!r} "
+              f"(argmax parts at (frame, CPU margin) {frames[:8]})")
+        cw = card_want()[b]
+        log(f"{tag} clip {b}: NEAR TIE at (frame, CPU logit margin) {frames}: "
+            f"card {g!r}, CPU reference {w!r}, card reference {cw!r}")
+        check(g == cw, f"{tag} clip {b}: card {g!r} != card reference {cw!r}")
+        ties.append(b)
+    return ties
+
+
+def swapped_rz_import(real):
+    """A planted fault: the GRU cell importer with the r and z gates'
+    blocks swapped."""
+    import numpy as np
+
+    def fake(sd, prefix, layer=0, reverse=False):
+        cell = real(sd, prefix, layer, reverse)
+        H = cell["w_hh"].shape[0]
+        return {k: np.concatenate([a[..., H:2 * H], a[..., :H],
+                                   a[..., 2 * H:]], axis=-1)
+                for k, a in cell.items()}
+
+    return fake
+
+
+def phase_parity_gate(rows) -> None:
+    """[parity-gate]: the fp32 transcript parity gate on the card. The
+    ``bigru_ctc`` release at full width in float32 is exported to the
+    reference-shaped torch model of ``tests/torch_ref.py`` (strict load);
+    on the per-frame oracle's ROIs of make_clip(33000-33004) the port's
+    transcripts on the card (greedy through kernel 2, prefix beam 16) must
+    equal the reference's own (greedy; the numpy prefix search, width 64)
+    run on the CPU, a near tie excepted (then the reference on the card is
+    the gate). Then the gate's four seeded legs at its small widths, and a
+    planted fault: the GRU's r and z gates swapped in the import must change
+    a transcript. TF32 off for the phase."""
+    import copy
+
+    import torch
+
+    from lipreading_tpu_torch.infer import ctc_log_probs, transcribe
+    from lipreading_tpu_torch.io import load_release_model
+    from lipreading_tpu_torch.ops.decode import ctc_greedy_ids
+    from lipreading_tpu_torch.text import Vocab
+    from lipreading_tpu_torch.train import importer
+
+    t_phase = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        tref = load_torch_ref()
+        vocab = Vocab()
+        wrappers = {"ctc_greedy": ctc_greedy_ids}
+        greedy_launches = 0
+        rois, lengths = gate_clips()
+        rois_c, lens_c = torch.from_numpy(rois), torch.from_numpy(lengths)
+        rois_d, lens_d = rois_c.to(DEV), lens_c.to(DEV)
+        log(f"[parity-gate] the oracle's ROIs of make_clip({PG_FIRST_SEED}-"
+            f"{PG_FIRST_SEED + PG_CLIPS - 1}): {tuple(rois.shape)}, lengths "
+            f"{lengths.tolist()} ({time.perf_counter() - t_phase:.1f} s)")
+
+        # the release leg, full width, float32
+        model, cfg = load_release_model(BIGRU_RELEASE, device=DEV,
+                                        overrides={"model.dtype": "float32"})
+        m = cfg.model
+        sd = importer.export_model_state_dict(model, cfg)
+        ref = tref.TorchLipReader(cfg).eval()
+        ref.load_state_dict(sd, strict=True)
+        back = importer.lipreader_from_state_dict(sd, cfg, device=DEV)
+        for k, v in model.state_dict().items():
+            check(torch.equal(back.state_dict()[k], v),
+                  f"[parity-gate] {k} changed over export and import")
+        log(f"[parity-gate] {BIGRU_RELEASE}: frontend {m.frontend_channels}, "
+            f"GRU {m.gru_hidden} x {m.gru_layers}, V {m.vocab_size}, float32; "
+            f"{len(sd)} reference tensors, strict load; export -> import "
+            "bit-exact")
+        transcribe(model, cfg, rois_d, lens_d, beam=1)          # warm-up
+        greedy, ms, n = counted_call(
+            wrappers, lambda: transcribe(model, cfg, rois_d, lens_d, beam=1))
+        check(n["ctc_greedy"] == 1, f"[parity-gate] greedy launches {n}")
+        greedy_launches += n["ctc_greedy"]
+        beam, beam_ms, nb = counted_call(
+            wrappers, lambda: transcribe(model, cfg, rois_d, lens_d,
+                                         beam=16))
+        check(nb["ctc_greedy"] == 0, f"[parity-gate] beam launches {nb}")
+        t0 = time.perf_counter()
+        want_g = tref.ctc_greedy_transcripts(ref, rois_c, lens_c, vocab)
+        lg_cpu = ref_logits(ref, rois_c, lens_c)
+        want_b = prefix_search(torch.log_softmax(lg_cpu, -1).numpy(),
+                               lengths, PG_RELEASE_SEARCH)
+        cpu_s = time.perf_counter() - t0
+        ref_d = copy.deepcopy(ref).to(DEV)
+        card_g = tref.ctc_greedy_transcripts(ref_d, rois_d, lens_d, vocab)
+        lg_card = ref_logits(ref_d, rois_d, lens_d)
+        card_lp = ctc_log_probs(model, cfg, rois_d, lens_d).float().cpu()
+        for b in range(len(greedy)):
+            log(f"[parity-gate]   clip {b}: greedy {greedy[b]!r} beam16 "
+                f"{beam[b]!r} | reference CPU {want_g[b]!r} / {want_b[b]!r}"
+                f", card {card_g[b]!r}")
+        ties = gate_ctc("[parity-gate] release greedy", greedy, want_g,
+                        card_lp, lg_cpu, lengths, lambda: card_g)
+        ties += gate_ctc(
+            "[parity-gate] release prefix beam", beam, want_b, card_lp,
+            lg_cpu, lengths, lambda: prefix_search(
+                torch.log_softmax(lg_card, -1).numpy(), lengths,
+                PG_RELEASE_SEARCH))
+        log(f"[parity-gate] release leg: greedy (kernel 2, {ms:.1f} ms host) "
+            f"and prefix beam 16 ({beam_ms:.1f} ms) string-identical to the "
+            f"reference model's greedy and width-{PG_RELEASE_SEARCH} prefix "
+            f"search on the CPU ({cpu_s:.1f} s){', near ties at clips ' + str(sorted(set(ties))) if ties else ''}"
+            f"; the reference on the card "
+            f"{'agrees' if card_g == want_g else 'DIFFERS: ' + str(card_g)}; "
+            f"launches greedy {n}, beam {nb}")
+
+        # the planted fault: r and z swapped in the import
+        with planted(importer, "import_gru_cell",
+                     swapped_rz_import(importer.import_gru_cell)):
+            bad = importer.lipreader_from_state_dict(sd, cfg, device=DEV)
+        bad_g = transcribe(bad, cfg, rois_d, lens_d, beam=1)
+        changed = sum(a != b for a, b in zip(bad_g, greedy))
+        log(f"[parity-gate] planted fault (GRU r and z swapped in the import):"
+            f" {changed} of {len(greedy)} transcripts change, e.g. "
+            f"{bad_g[0]!r}")
+        check(changed > 0, "[parity-gate] the swapped-gate import changed no "
+              "transcript")
+        del model, back, bad, ref_d
+
+        # the gate's seeded legs at its small widths
+        for name, decoder, seed, width in PG_LEGS:
+            gcfg = gate_cfg(decoder)
+            torch.manual_seed(seed)
+            ref = tref.TorchLipReader(gcfg).eval()
+            r_c, l_c = rois_c, lens_c
+            if name == "ctc prefix beam":
+                with torch.no_grad():
+                    ref.ctc_head.weight *= 64.0
+                    ref.ctc_head.bias *= 64.0
+                r_c, l_c = rois_c[:, :24].contiguous(), lens_c.clamp(max=24)
+                gcfg.train.max_decode_len = 32
+            port = importer.lipreader_from_state_dict(ref.state_dict(), gcfg,
+                                                      device=DEV)
+            r_d, l_d = r_c.to(DEV), l_c.to(DEV)
+            got, _, n = counted_call(
+                wrappers, lambda: transcribe(port, gcfg, r_d, l_d,
+                                             beam=width))
+            greedy_launches += n["ctc_greedy"]
+            check(n["ctc_greedy"] == (1 if name == "ctc greedy" else 0),
+                  f"[parity-gate] {name}: launches {n}")
+            if decoder == "ctc":
+                lg = ref_logits(ref, r_c, l_c)
+                lp_card = ctc_log_probs(port, gcfg, r_d, l_d).float().cpu()
+                ref_d = copy.deepcopy(ref).to(DEV)
+                if width == 1:
+                    want = tref.ctc_greedy_transcripts(ref, r_c, l_c, vocab)
+                    card_want = lambda: tref.ctc_greedy_transcripts(  # noqa: E731
+                        ref_d, r_d, l_d, vocab)
+                else:
+                    want = prefix_search(torch.log_softmax(lg, -1).numpy(),
+                                         l_c.numpy(), PG_SEEDED_SEARCH)
+                    card_want = lambda: prefix_search(  # noqa: E731
+                        torch.log_softmax(ref_logits(ref_d, r_d, l_d),
+                                          -1).numpy(), l_c.numpy(),
+                        PG_SEEDED_SEARCH)
+                ties += gate_ctc(f"[parity-gate] {name}", got, want, lp_card,
+                                 lg, l_c.numpy(), card_want)
+            elif width == 1:
+                want = tref.attention_greedy_transcripts(
+                    ref, r_c, l_c, vocab, gcfg.train.max_decode_len)
+            else:
+                want = tref.attention_beam_transcripts(
+                    ref, r_c, l_c, vocab, beam=width,
+                    max_len=gcfg.train.max_decode_len,
+                    length_penalty=gcfg.train.length_penalty)
+            if decoder == "attention":
+                check(got == want, f"[parity-gate] {name}: card {got} != "
+                      f"reference {want}")
+            log(f"[parity-gate] seed {seed} {name} (beam {width}): "
+                f"{'equal' if got == want else 'equal but for near ties'} "
+                f"to the reference's; launches {n}; {got}")
+        path_launches(rows, "parity-gate", {"ctc_greedy": greedy_launches})
+        log(f"[parity-gate] kernel 2 launched {greedy_launches} times in the "
+            f"phase's counted calls; phase {time.perf_counter() - t_phase:.1f}"
+            " s")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+
+
+def trace_names(path: str) -> set:
+    with open(path) as f:
+        return {e.get("name", "") for e in json.load(f)["traceEvents"]}
+
+
+def phase_oracle(smi: str, rows) -> None:
+    """[oracle]: the per-frame oracle on the card machine's host equal to
+    ``tests/golden/clip0.npz`` exactly; the port's batched
+    ``preprocess_frames`` on the card (kernel 1) over clip 0's first 48
+    frames against it (face boxes and landmarks within 1e-2, mouth boxes
+    equal, ROIs within 1e-3: ``parity_max_diff``), which a mouth box shifted
+    one pixel must break; the host C++ oracle against it; frames/s of the
+    numpy oracle, the C++ oracle and the card's preprocess by
+    ``profiling.Timer``; a ``profiling.capture`` trace of a card preprocess
+    that names the ROI kernel."""
+    import numpy as np
+    import torch
+
+    from lipreading_tpu_torch import native, profiling
+    from lipreading_tpu_torch.config import PreprocessConfig
+    from lipreading_tpu_torch.fixtures import make_clip
+    from lipreading_tpu_torch.io import load_assets
+    from lipreading_tpu_torch.ops.detector import params_to_torch
+    from lipreading_tpu_torch.ops.ert import model_to_torch
+    from lipreading_tpu_torch.ops.preprocess import preprocess_frames
+    from lipreading_tpu_torch.ops.roi import grayscale, sample_rois
+    from lipreading_tpu_torch.oracle.pipeline import load_golden, run_clip
+
+    t_phase = time.perf_counter()
+    det, ert = load_assets()
+    clip = make_clip(0)
+    res = run_clip(clip.frames, det, ert)
+    golden = load_golden(os.path.join(ROOT, "tests", "golden", "clip0.npz"))
+    for k in ("gray", "face_boxes", "landmarks", "mouth_boxes", "roi"):
+        check(np.array_equal(getattr(res, k), golden[k]),
+              f"[oracle] run_clip's {k} differs from tests/golden/clip0.npz")
+    log(f"[oracle] run_clip on clip 0 ({len(clip.frames)} frames) equals "
+        "tests/golden/clip0.npz exactly (gray, face boxes, landmarks, mouth "
+        "boxes, ROIs)")
+
+    n = ORACLE_FRAMES
+    frames = clip.frames[:n]
+    pcfg = PreprocessConfig()
+    det_d, ert_d = params_to_torch(det, DEV), model_to_torch(ert, DEV)
+    fr = torch.as_tensor(frames, device=DEV)
+
+    def card():
+        with torch.inference_mode():
+            return preprocess_frames(det_d, ert_d, fr, pcfg, return_aux=True)
+
+    card()                                                     # warm-up
+    (rois, aux), ms, cnt = counted_call({"roi_sampler": sample_rois}, card)
+    check(cnt["roi_sampler"] == 1, f"[oracle] ROI launches {cnt}, want 1")
+    def per_frame(v, k):
+        d = (v.float().cpu() - torch.from_numpy(getattr(res, k)[:n])).abs()
+        return d.reshape(n, -1).amax(1)
+
+    fb_err, lm_err = (per_frame(aux[k], k) for k in ("face_boxes",
+                                                       "landmarks"))
+    roi_err = float(per_frame(rois, "roi").max())
+    mouth_equal = bool(np.array_equal(aux["mouth_boxes"].cpu().numpy(),
+                                      res.mouth_boxes[:n]))
+    with torch.inference_mode():
+        mb = aux["mouth_boxes"]
+        shifted = mb + torch.tensor([1, 0, 0], device=DEV, dtype=mb.dtype)
+        bad = sample_rois(grayscale(fr), shifted, pcfg.roi_size,
+                          mean=pcfg.normalize_mean, std=pcfg.normalize_std)
+    fault = float((bad.cpu() - torch.from_numpy(res.roi[:n])).abs().max())
+    lim = ORACLE_LIMITS
+    edges = (lm_err > lim["landmarks"]).nonzero().flatten().tolist()
+    lm_rest = float(lm_err[lm_err <= lim["landmarks"]].max())
+    log(f"[oracle] preprocess_frames on the card ({n} frames, {ms:.1f} ms "
+        f"host, ROI launches {cnt['roi_sampler']}) against run_clip: face "
+        f"boxes {float(fb_err.max()):.3g} px (limit {lim['face_boxes']:g}), "
+        f"landmarks {lm_rest:.3g} px (limit {lim['landmarks']:g}) off "
+        f"{len(edges)} ERT knife-edge frame(s), mouth boxes "
+        f"{'equal' if mouth_equal else 'DIFFER'}, ROIs {roi_err:.3g} (limit "
+        f"{lim['roi']:g}); planted fault (mouth boxes shifted 1 px) ROIs "
+        f"{fault:.3g}")
+    for t in edges:
+        log(f"[oracle]   ERT knife edge at frame {t}: landmarks "
+            f"{float(lm_err[t]):.3g} px with the face box "
+            f"{float(fb_err[t]):.3g} px apart (a nearest-pixel lookup of the "
+            "cascade flips; the JAX package's batched preprocess parts from "
+            "its oracle there as well on the CPU)")
+        check(fb_err[t] <= ORACLE_KNIFE_BOX,
+              f"[oracle] frame {t}: landmarks {float(lm_err[t])} px apart "
+              f"with the face box {float(fb_err[t])} px apart")
+    log(f"[oracle] parity_max_diff {roi_err!r}")
+    check(len(edges) <= ORACLE_KNIFE_EDGES, f"[oracle] landmarks beyond "
+          f"{lim['landmarks']} px at frames {edges}")
+    check(float(fb_err.max()) <= lim["face_boxes"],
+          f"[oracle] face boxes card vs oracle {float(fb_err.max())}")
+    check(mouth_equal, "[oracle] mouth boxes card != oracle")
+    check(roi_err <= lim["roi"], f"[oracle] ROIs card vs oracle {roi_err}")
+    check(fault > lim["roi"], f"[oracle] the shifted box's ROIs {fault} are "
+          f"within {lim['roi']}")
+
+    nat_rois, nat_lms = native.preprocess_clip(
+        ert, frames, res.face_boxes[:n], return_landmarks=True)
+    nat = (float(np.abs(nat_lms - res.landmarks[:n]).max()),
+           float(np.abs(nat_rois - res.roi[:n]).max()))
+    log(f"[oracle] the host C++ oracle (g++ build) from the oracle's face "
+        f"boxes: landmarks {nat[0]:.3g} px (limit 1e-2), ROIs {nat[1]:.3g} "
+        "(limit 1e-3)")
+    check(nat[0] <= 1e-2 and nat[1] <= 1e-3,
+          f"[oracle] the C++ oracle against run_clip: {nat}")
+
+    fb = res.face_boxes[:n]
+    fps = {
+        "numpy oracle (detector, ERT, ROI per frame)": n / profiling.Timer(
+            lambda: run_clip(frames, det, ert), warmup=1).measure(reps=3),
+        "C++ oracle (gray, ERT, ROI per frame; boxes given)":
+            n / profiling.Timer(lambda: native.preprocess_clip(
+                ert, frames, fb), warmup=1).measure(reps=10),
+        "card preprocess_frames (batched, kernel 1)": n / profiling.Timer(
+            card, warmup=3).measure(reps=20),
+    }
+    for k, v in fps.items():
+        log(f"[oracle] {k}: {v:.1f} frames/s over {n} frames (one reading; "
+            f"{smi})")
+
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profiling.capture(ORACLE_DIR) as path:
+            with profiling.annotate("oracle_card_preprocess"):
+                card()
+        names = trace_names(path)
+        hit = sorted(x for x in names if "roi_sample" in x)
+        if hit and "oracle_card_preprocess" in names:
+            break
+        log(f"[oracle] capture {attempt} of {PROFILE_ATTEMPTS} names no ROI "
+            "kernel: taken again")
+        time.sleep(1.0)
+    check(bool(hit), f"[oracle] no capture of {PROFILE_ATTEMPTS} named the "
+          "ROI kernel")
+    log(f"[oracle] profiling.capture wrote {os.path.relpath(path, ROOT)} "
+        f"({os.path.getsize(path)} bytes, attempt {attempt}): "
+        f"{len(names)} event names, the ROI kernel as {hit[0][:60]!r}")
+    path_launches(rows, "oracle", cnt)
+    log(f"[oracle] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     t_start = time.perf_counter()
@@ -5279,6 +5749,8 @@ def main() -> int:
         phase_stream(rows)
         phase_demo(rows)
         phase_preproc_train(pre_futures, rows)
+        phase_parity_gate(rows)
+        phase_oracle(smi, rows)
         phase_multigpu(gpu, long, rows)
     except Exception as e:  # every phase failure ends here, without a result
         import traceback

@@ -1,6 +1,7 @@
-"""Raw-frame batches and the serving loop's input ring (counterpart of
-``VideoBatch``, ``FixtureVideoDataset``, ``VideoBatchIterator``,
-``ShmVideoDecodePool`` and ``Prefetcher`` in
+"""Raw-frame batches, disk-video ingest and the serving loop's input ring
+(counterpart of ``VideoBatch``, ``FixtureVideoDataset``,
+``VideoBatchIterator``, ``VideoDecodePool``, ``ShmVideoDecodePool``,
+``VideoFileIterator`` and ``Prefetcher`` in
 ``lipreading_tpu/data/pipeline.py``).
 
 * Training: the host renders fixture clips, cuts them into per-word cue
@@ -9,17 +10,25 @@
   (``train/loop.FusedTrainer``). The same seeds give the same batches, in
   the same order, as the JAX package. ``video_batch_to_device`` copies them
   to the device.
+* Disk-video ingest: ``VideoFileIterator`` decodes mp4 files in worker
+  processes every epoch (``VideoDecodePool``, frames over the pipe, or the
+  shared-memory ring) into the same ``VideoBatch``es, for the same train
+  step. Decode needs OpenCV (``data/video.py``).
 * Serving: ``ShmVideoDecodePool`` decodes (or renders) clips in worker
   processes into shared-memory slots, and ``PinnedPrefetcher`` stages the
   padded batches in page-locked memory and copies them to the card on a
   side stream, so that the next batch's copy overlaps this one's work.
 
-This module imports torch only inside the functions that use it: the
-ring's spawned workers import it and nothing of torch.
+Every wait on a worker is timed (``RING_TIMEOUT``). This module imports
+torch only inside the functions that use it: the workers import it and
+nothing of torch.
 """
 
 from __future__ import annotations
 
+import collections
+import itertools
+import multiprocessing
 import os
 import queue
 import threading
@@ -207,6 +216,69 @@ def _decode_frames(payload):
     return decode_video(path, max_frames=max_frames)[0]
 
 
+# the pools' worker under the JAX package's name for it
+_decode_one = _decode_frames
+
+
+class VideoDecodePool:
+    """Decode mp4 files in ``workers`` spawned processes; the frames come
+    back over the pipe (pickled). ``imap`` yields them in input order with
+    at most ``workers + prefetch`` files in flight. A clip that does not
+    come within ``timeout`` seconds raises TimeoutError, and a worker's
+    error raises in the parent.
+
+    Usage::
+
+        with VideoDecodePool(workers=4) as pool:
+            for frames in pool.imap(paths):
+                ...
+    """
+
+    def __init__(self, workers: int | None = None, prefetch: int = 4,
+                 timeout: float = RING_TIMEOUT):
+        self.workers = workers or max(1, (os.cpu_count() or 1) - 1)
+        self.prefetch = prefetch
+        self.timeout = timeout
+        ctx = multiprocessing.get_context("spawn")
+        self._pool = ctx.Pool(self.workers)
+
+    def imap(self, paths, max_frames: int | None = None):
+        """Yield decoded [T, H, W, 3] uint8 stacks in input order."""
+        paths = list(paths)
+
+        def drain():
+            todo = iter(paths)
+            inflight = collections.deque()
+
+            def send(n):
+                for p in itertools.islice(todo, n):
+                    inflight.append((p, self._pool.apply_async(
+                        _decode_one, ((p, max_frames),))))
+
+            send(self.workers + self.prefetch)
+            while inflight:
+                path, res = inflight.popleft()
+                try:
+                    frames = res.get(timeout=self.timeout)
+                except multiprocessing.TimeoutError:
+                    raise TimeoutError(f"no decoded clip in {self.timeout:g}"
+                                       f" s for {path!r}") from None
+                send(1)
+                yield frames
+
+        return drain()
+
+    def close(self):
+        self._pool.terminate()
+        self._pool.join()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
 def _render_frames(payload):
     """Ring work function: (seed, max_frames) -> the first frames of
     ``fixtures.make_clip(seed)``, rendered in the worker (no codec)."""
@@ -320,6 +392,14 @@ class ShmVideoDecodePool:
             p.start()
         self._closed = False
 
+    def imap(self, paths, max_frames: int | None = None, copy: bool = True):
+        """Yield the decoded [T, H, W, 3] uint8 stacks of ``paths`` in input
+        order (the default ``work_fn``). Each clip is copied out of its slot
+        as it arrives, which is what keeps the ring from deadlocking, so
+        every yielded array is the caller's own whatever ``copy`` says (the
+        JAX ring yields views into its slots with ``copy=False``)."""
+        return self.imap_jobs([(p, max_frames) for p in paths])
+
     def imap_jobs(self, payloads):
         """Yield ``work_fn(payload)`` for each payload, in input order."""
         payloads = list(payloads)
@@ -407,6 +487,76 @@ class ShmVideoDecodePool:
 
     def __exit__(self, *exc):
         self.close()
+
+
+class VideoFileIterator:
+    """Endless iterator of ``VideoBatch``es decoded from video files on
+    disk through ``pool`` (a ``VideoDecodePool`` or a
+    ``ShmVideoDecodePool``): the disk counterpart of
+    ``VideoBatchIterator``. ``samples`` is a list of (path, text). Each
+    epoch takes a seeded permutation of the samples, cut to whole batches,
+    and decodes every file anew (nothing is cached), each clip padded to the
+    largest time bucket; the same seed gives the JAX package's batches."""
+
+    def __init__(self, samples: list[tuple[str, str]], cfg: DataConfig,
+                 batch_size: int, pool, vocab: Vocab | None = None,
+                 seed: int = 0):
+        self.samples = samples
+        self.cfg = cfg
+        self.batch_size = batch_size
+        self.pool = pool
+        self.vocab = vocab or Vocab()
+        self.seed = seed
+        self.epoch = 0
+        self._iter = None
+
+    def _epoch_stream(self, epoch):
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, epoch, 0xF11E]))
+        order = rng.permutation(len(self.samples))
+        n = (len(order) // self.batch_size) * self.batch_size
+        if n == 0:
+            raise RuntimeError("corpus smaller than batch size")
+        order = order[:n]
+        bucket = max(self.cfg.time_buckets)
+        decoded = self.pool.imap([self.samples[i][0] for i in order],
+                                 max_frames=bucket)
+        B, L = self.batch_size, self.cfg.max_chars
+        H, W = self.cfg.frame_height, self.cfg.frame_width
+        for lo in range(0, n, B):
+            frames = np.zeros((B, bucket, H, W, 3), np.uint8)
+            fl = np.zeros((B,), np.int32)
+            targets = np.zeros((B, L), np.int32)
+            tl = np.zeros((B,), np.int32)
+            ctc = np.zeros((B, L), np.int32)
+            cl = np.zeros((B,), np.int32)
+            texts = []
+            for k in range(B):
+                f = next(decoded)
+                text = self.samples[order[lo + k]][1]
+                t = min(f.shape[0], bucket)
+                frames[k, :t] = f[:t]
+                fl[k] = t
+                ids = self.vocab.encode(text)[: L - 2]
+                text = self.vocab.decode(ids)
+                targets[k], tl[k] = self.vocab.encode_target(text, L)
+                ctc[k, : len(ids)] = ids
+                cl[k] = len(ids)
+                texts.append(text)
+            yield VideoBatch(frames, fl, targets, tl, ctc, cl, texts)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> VideoBatch:
+        if self._iter is None:
+            self._iter = self._epoch_stream(self.epoch)
+        try:
+            return next(self._iter)
+        except StopIteration:
+            self.epoch += 1
+            self._iter = self._epoch_stream(self.epoch)
+            return next(self._iter)
 
 
 class PinnedPrefetcher:

@@ -6,8 +6,9 @@ to the current shape estimate (anchor landmark + box-normalised offset), then
 K depth-D trees compare pool-pixel differences against thresholds and add
 their leaves' 136-value shape increments. Shapes are stored normalised to the
 square face box: pixel = origin + s * size. ``predict`` runs the cascade on
-one frame in numpy (the held-out metric of ``oracle/ert_train.py``), and
-``save`` writes ``ert.npz``.
+one frame in numpy (the per-frame oracle and the held-out metric of
+``oracle/ert_train.py``), ``random_ert`` draws a valid cascade from a seed,
+and ``save`` writes ``ert.npz``.
 """
 
 from __future__ import annotations
@@ -32,8 +33,16 @@ class ERTModel:
         return int(self.anchors.shape[0])
 
     @property
+    def pool_size(self) -> int:
+        return int(self.anchors.shape[1])
+
+    @property
     def num_trees(self) -> int:
         return int(self.feat1.shape[1])
+
+    @property
+    def depth(self) -> int:
+        return int(np.log2(self.feat1.shape[2] + 1))
 
     def save(self, path) -> None:
         np.savez_compressed(
@@ -51,6 +60,40 @@ class ERTModel:
     def load(cls, path) -> "ERTModel":
         with np.load(path) as z:
             return cls(**{k: z[k] for k in z.files})
+
+
+def random_ert(
+    seed: int,
+    stages: int = 10,
+    pool: int = 128,
+    trees: int = 96,
+    depth: int = 4,
+    mean_shape: np.ndarray | None = None,
+) -> ERTModel:
+    """A structurally valid cascade with seeded random parameters, the same
+    draw as the JAX package's for the same arguments (the parity tests hold
+    the oracles to each other for any weights)."""
+    rng = np.random.default_rng(np.random.SeedSequence([0xE27, seed]))
+    nn = 2**depth - 1
+    nl = 2**depth
+    if mean_shape is None:
+        # a rough face-box-normalised 68-point ring
+        mean_shape = np.stack(
+            [
+                0.5 + 0.4 * np.cos(np.linspace(0, 2 * np.pi, 68, endpoint=False)),
+                0.5 + 0.4 * np.sin(np.linspace(0, 2 * np.pi, 68, endpoint=False)),
+            ],
+            axis=1,
+        ).astype(np.float32)
+    return ERTModel(
+        mean_shape=mean_shape.astype(np.float32),
+        anchors=rng.integers(0, 68, size=(stages, pool)).astype(np.int32),
+        offsets=rng.normal(0, 0.12, size=(stages, pool, 2)).astype(np.float32),
+        feat1=rng.integers(0, pool, size=(stages, trees, nn)).astype(np.int32),
+        feat2=rng.integers(0, pool, size=(stages, trees, nn)).astype(np.int32),
+        thresh=rng.normal(0, 25.0, size=(stages, trees, nn)).astype(np.float32),
+        leaves=rng.normal(0, 1e-3, size=(stages, trees, nl, 136)).astype(np.float32),
+    )
 
 
 def gather_pool(gray: np.ndarray, shape_norm: np.ndarray,

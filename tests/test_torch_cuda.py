@@ -797,3 +797,42 @@ def test_dp2_tp2_ranks_sharing_the_card_match_one_process(cuda, tmp_path):
         assert got["digest"] == ranks[0]["dp2tp2"]["digest"]
         assert o["resume_state_equal"]
         assert o["resume_rel"] <= 1e-4, o["resume_rel"]
+
+
+def _smoke():
+    """``chip_smoke.py`` (the repository root is on the path under
+    ``python -m pytest``)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+def test_parity_gate_release_and_seeded_legs_on_the_card(cuda):
+    """``[parity-gate]``: the full-width float32 ``bigru_ctc`` release
+    through the reference-shaped model, greedy (kernel 2) and prefix beam 16
+    string-identical to the reference on the CPU, the four seeded legs, the
+    swapped-gate fault caught; kernel 2 launched once a greedy call."""
+    smoke = _smoke()
+    rows = [{"name": "ctc_greedy"}]
+    tf32 = torch.backends.cudnn.allow_tf32
+    smoke.phase_parity_gate(rows)
+    assert rows[0]["launches_by_path"]["parity-gate"] == 2
+    assert torch.backends.cudnn.allow_tf32 == tf32       # restored
+
+
+@pytest.mark.cuda
+def test_oracle_leg_on_the_card(cuda):
+    """``[oracle]``: the golden dump exactly, the card's preprocess (kernel
+    1) against the per-frame oracle with the shifted-box fault caught, the
+    host C++ oracle, a capture naming the ROI kernel."""
+    smoke = _smoke()
+    rows = [{"name": "roi_sampler"}]
+    smoke.phase_oracle("", rows)
+    assert rows[0]["launches_by_path"]["oracle"] == 1

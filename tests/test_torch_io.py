@@ -141,7 +141,7 @@ def _port_sources():
     root = os.path.join(REPO, "lipreading_tpu_torch")
     for d, _, files in os.walk(root):
         for f in files:
-            if f.endswith((".py", ".cu", ".cuh")):
+            if f.endswith((".py", ".cu", ".cuh", ".cpp")):
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
 
@@ -184,7 +184,15 @@ def test_port_imports_nothing_of_jax():
             "lipreading_tpu_torch/parallel/comm.py",
             "lipreading_tpu_torch/parallel/mesh.py",
             "lipreading_tpu_torch/parallel/ring.py",
-            "lipreading_tpu_torch/parallel/pipeline.py"} <= names
+            "lipreading_tpu_torch/parallel/pipeline.py",
+            "lipreading_tpu_torch/train/importer.py",
+            "lipreading_tpu_torch/oracle/pipeline.py",
+            "lipreading_tpu_torch/oracle/detector.py",
+            "lipreading_tpu_torch/make_golden.py",
+            "lipreading_tpu_torch/native.py",
+            "lipreading_tpu_torch/csrc/lipreading_host.cpp",
+            "lipreading_tpu_torch/profiling.py",
+            "lipreading_tpu_torch/data/pipeline.py"} <= names
     for path in srcs:
         with open(path) as f:
             text = f.read()
