@@ -260,6 +260,21 @@ The reference contracts add two phases before it:
   preprocess by ``profiling.Timer``; a ``profiling.capture`` trace of a
   card preprocess that names the ROI kernel (taken again up to 5 times).
 
+The measurement entries add one phase, ``[measure]``, before it: each of
+the eight entries' ``main`` in-process at a cut size (``MEASURE_ARGS``), its
+printed table echoed: ``microbench``, ``roofline_preprocess``,
+``bench_flash``, ``bench_stem``, ``profile_train``, ``profile_decode``,
+``bench_decode_knee`` (these two on ``transformer_hybrid_universal``, which
+has ``transformer_hybrid``'s architecture and preprocessing: the smoke reads
+no other weights) and ``bench_ingest``. Each entry must print every row or
+key of its JAX script, in its order, under the port's names
+(``MEASURE_ROWS``); every time and rate must be finite and above 0 (the
+decode profile's residual, a difference, finite; the codec keys of
+``bench_ingest`` null where OpenCV is missing); the launch counts, set to 0
+before each entry and read after, must show every kernel the entry runs
+(``MEASURE_KERNELS``), each row naming a kernel its own
+(``MEASURE_ROW_KERNELS``), and no ``_plain`` row a launch.
+
 Multi-GPU training adds one phase, ``[multigpu]``, last: 4 ranks spawned
 from this process (the kernels already built), one card each over NCCL
 where 4 cards exist, else all on ``cuda:0`` over gloo (a log line says
@@ -551,6 +566,72 @@ ORACLE_LIMITS = {"face_boxes": 1e-2, "landmarks": 1e-2, "roi": 1e-3}
 ORACLE_KNIFE_BOX = 1e-3
 ORACLE_KNIFE_EDGES = 2
 ORACLE_DIR = os.path.join(ROOT, "runs", "chip_smoke_oracle")
+# [measure]: each entry's cut size, the rows or keys it must print (the JAX
+# script's, under the port's names), the kernels its run must launch, and
+# the kernels that each row naming a kernel must launch
+MEASURE_RELEASE = "transformer_hybrid_universal"
+MEASURE_ARGS = {
+    "microbench": ["frames=96", "reps=3"],
+    "roofline_preprocess": ["frames=96", "reps=3"],
+    "bench_flash": ["T=1024,4096", "reps=2"],
+    "bench_stem": ["B=8", "T=32", "K=3"],
+    "profile_train": ["B=8", "T=32", "reps=3"],
+    "profile_decode": ["B=4", "T=32", "beam=4", "reps=1"],
+    "bench_decode_knee": ["Bs=4", "clips=4", "reps=1"],
+    "bench_ingest": ["n=4", "T=32", "workers=1"],
+}
+MEASURE_ROWS = {
+    "microbench": ["grayscale", "detector", "ert_cascade", "roi_kernel",
+                   "roi_plain", "preprocess_full", "ctc_fwd_plain",
+                   "ctc_fwd_kernel", "ctc_grad_plain", "ctc_grad_kernel",
+                   "ctc_decode_plain", "ctc_decode_kernel",
+                   *(f"attn_{k}_T{T}" for T in (128, 512, 1024)
+                     for k in ("plain", "flash"))],
+    "roofline_preprocess": ["grayscale", "detector", "ert", "roi_kernel",
+                            "roi_plain", "full_ert", "gather10", "copy"],
+    "bench_flash": [f"{T} {b}" for T in (1024, 4096)
+                    for b in ("pallas", "fused")],
+    "bench_stem": ["conv3d", "patchify"],
+    "profile_train": ["full step", "frontend fwd+bwd", "encoder fwd+bwd",
+                      "decoder fwd+bwd", "ctc head+loss fwd+bwd",
+                      "optimizer (AdamW)", "sum of parts"],
+    "profile_decode": ["encode", "greedy+conf", "beam@48", "beam@32",
+                       "beam@24", "att-steps x48", "ctc-scores x48",
+                       "topk+gather+lm (residual)"],
+    "bench_decode_knee": ["flagship 4", "cascade 4", "greedy 4"],
+    "bench_ingest": ["host_decode_fps", "pool_decode_fps@1",
+                     "null_ipc_fps@1", "shm_decode_fps@1",
+                     "shm_decode_view_fps@1", "null_shm_fps@1",
+                     "null_shm_view_fps@1"],
+}
+_CTC = ("ctc_lattice_fwd", "ctc_lattice_bwd")
+MEASURE_KERNELS = {
+    "microbench": ("roi_sampler", "ctc_greedy", *_CTC, "flash_fwd"),
+    "roofline_preprocess": ("roi_sampler",),
+    "bench_flash": ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq",
+                    "flash_bwd_dkv"),
+    "bench_stem": _CTC,
+    "profile_train": _CTC,
+    "profile_decode": ("ctc_greedy",),
+    "bench_decode_knee": ("roi_sampler", "ctc_greedy"),
+    "bench_ingest": (),
+}
+MEASURE_ROW_KERNELS = {
+    "roi_kernel": ("roi_sampler",), "preprocess_full": ("roi_sampler",),
+    "full_ert": ("roi_sampler",), "ctc_fwd_kernel": ("ctc_lattice_fwd",),
+    "ctc_grad_kernel": _CTC, "ctc_decode_kernel": ("ctc_greedy",),
+    "attn_flash_T128": ("flash_fwd",), "attn_flash_T512": ("flash_fwd",),
+    "attn_flash_T1024": ("flash_fwd",),
+    "1024 pallas": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+    "4096 pallas": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+    "1024 fused": ("flash_fwd", "flash_bwd_fused"),
+    "4096 fused": ("flash_fwd", "flash_bwd_fused"),
+    "conv3d": _CTC, "patchify": _CTC, "full step": _CTC,
+    "ctc head+loss fwd+bwd": _CTC, "greedy+conf": ("ctc_greedy",),
+    "flagship 4": ("roi_sampler",),
+    "cascade 4": ("roi_sampler", "ctc_greedy"),
+    "greedy 4": ("roi_sampler", "ctc_greedy"),
+}
 
 
 class SmokeError(RuntimeError):
@@ -5687,6 +5768,128 @@ def phase_oracle(smi: str, rows) -> None:
     log(f"[oracle] phase {time.perf_counter() - t_phase:.1f} s")
 
 
+def measure_rows(entry: str, out) -> list[tuple[str, dict, dict]]:
+    """An entry's result as [(row name, {value name: value}, launches)] in
+    its printed order."""
+    if entry == "microbench":
+        return [(r["op"], {"ms": r["ms"], "items/s": r["items_per_s"]},
+                 r["launches"]) for r in out]
+    if entry == "roofline_preprocess":
+        keep = ("ms", "fps", "gbs", "gflops", "bw_pct", "f32_pct")
+        return ([(r["stage"], {k: r[k] for k in keep if k in r},
+                  r["launches"]) for r in out["rows"]]
+                + [("gather10", out["gather10"], {}),
+                   ("copy", out["copy"], {})])
+    if entry == "bench_flash":
+        return [(f"{r['T']} {r['bwd']}", {"fwd_ms": r["fwd_ms"],
+                                          "fwd_bwd_ms": r["fwd_bwd_ms"]},
+                 r["launches"]) for r in out]
+    if entry == "bench_stem":
+        return [(r["stem"], {k: r[k] for k in ("ms_per_step", "fps", "mfu",
+                                               "loss", "params_m")},
+                 r["launches"]) for r in out]
+    if entry == "profile_train":
+        return ([(r["name"], {"ms": r["ms"], "share_pct": r["share_pct"]},
+                  r["launches"]) for r in out["rows"]]
+                + [("sum of parts", {"ms": out["sum_ms"],
+                                     "share_pct": out["sum_pct"]}, {})])
+    if entry == "profile_decode":
+        return [(r["name"], {"ms": r["ms"]}, r["launches"])
+                for r in out["rows"]]
+    if entry == "bench_decode_knee":
+        return [(f"{r['section']} {r['B']}",
+                 {k: r[k] for k in ("ms_per_call", "fps", "rescored_frac")
+                  if k in r}, r["launches"]) for r in out]
+    if entry == "bench_ingest":
+        return [(k, {"frames/s": v}, {}) for k, v in out["rates"].items()]
+    raise KeyError(entry)
+
+
+def measure_printed(entry: str, name: str) -> str:
+    """The text that names row ``name`` in ``entry``'s printed table."""
+    if entry == "bench_flash":
+        T, b = name.split()
+        return f"{int(T):6d} {b:>7s}"
+    if entry == "bench_decode_knee":
+        sec, B = name.split()
+        return f'"section": "{sec}", "B": {B}'
+    return name
+
+
+def measure_value_ok(name: str, key: str, v) -> bool:
+    """A reading of [measure]: finite, and above 0 unless it is the decode
+    profile's residual (a difference) or a share that may print as 0.0."""
+    import math
+
+    ok = isinstance(v, (int, float)) and math.isfinite(v)
+    if name.endswith("(residual)") or key in ("bw_pct", "f32_pct",
+                                               "rescored_frac"):
+        return ok
+    return ok and v > 0
+
+
+def phase_measure(rows) -> None:
+    """[measure]: the eight measurement entries at cut sizes (docstring)."""
+    import importlib
+    import io
+
+    from lipreading_tpu_torch import flops
+
+    t_phase = time.perf_counter()
+    wrappers = mg_wrappers()
+    wrappers.update(path_wrappers())
+    mfu_known = flops.device_peak_flops("float32") is not None
+    for entry, argv in MEASURE_ARGS.items():
+        mod = importlib.import_module(f"lipreading_tpu_torch.{entry}")
+        # transformer_hybrid's shapes from weights the smoke reads anyway
+        kw = ({"release": MEASURE_RELEASE}
+              if entry in ("profile_decode", "bench_decode_knee") else {})
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out, _, counts = counted_call(
+                wrappers, lambda m=mod, kw=kw: m.main(argv, **kw))
+        secs = time.perf_counter() - t0
+        text = buf.getvalue()
+        for line in text.rstrip().splitlines():
+            log(f"[measure] {entry}: {line}")
+        got = measure_rows(entry, out)
+        names = [n for n, _, _ in got]
+        check(names == MEASURE_ROWS[entry],
+              f"[measure] {entry}: rows {names}, want {MEASURE_ROWS[entry]}")
+        pos = 0
+        for n in names:
+            p = measure_printed(entry, n)
+            check(p in text[pos:], f"[measure] {entry}: {p!r} not printed "
+                  "in its order")
+            pos = text.index(p, pos) + len(p)
+        no_codec = entry == "bench_ingest" and out["no_codec"]
+        for n, vals, launched in got:
+            for k, v in vals.items():
+                if v is None and no_codec and not n.startswith("null_"):
+                    continue            # a codec key without OpenCV
+                if k == "mfu" and not mfu_known:
+                    continue
+                check(measure_value_ok(n, k, v),
+                      f"[measure] {entry} {n}: {k} = {v}")
+            if "plain" in n.split("_"):
+                check(not launched, f"[measure] {entry} {n}: a plain row "
+                      f"launched {launched}")
+            for kname in MEASURE_ROW_KERNELS.get(n, ()):
+                check(launched.get(kname, 0) > 0,
+                      f"[measure] {entry} {n}: no {kname} launch "
+                      f"({launched})")
+        launched = {k: v for k, v in counts.items() if v}
+        for kname in MEASURE_KERNELS[entry]:
+            check(counts[kname] > 0, f"[measure] {entry}: no {kname} launch "
+                  f"in its run ({launched})")
+        path_launches(rows, f"measure {entry}", counts)
+        log(f"[measure] {entry}: {secs:.1f} s, launches {launched}")
+    log(f"[measure] passed: every entry's rows in order, finite times, "
+        f"every kernel of each entry launched, no plain-row launch "
+        f"({time.perf_counter() - t_phase:.1f} s)")
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     t_start = time.perf_counter()
@@ -5751,6 +5954,7 @@ def main() -> int:
         phase_preproc_train(pre_futures, rows)
         phase_parity_gate(rows)
         phase_oracle(smi, rows)
+        phase_measure(rows)
         phase_multigpu(gpu, long, rows)
     except Exception as e:  # every phase failure ends here, without a result
         import traceback

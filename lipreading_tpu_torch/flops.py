@@ -9,20 +9,24 @@ package. ``train_step_flops`` is 3x the forward.
 ``device_peak_flops`` is NVIDIA's published dense peak of the current card
 for the compute type: the H100 SXM (989 TFLOP/s bf16, 67 TFLOP/s float32
 outside the tensor cores) and the H100 PCIe (756 and 51); any other card,
-or no card, gives None, and then no MFU is logged.
+or no card, gives None, and then no MFU is logged. ``card_peaks`` gives a
+named card's memory rate beside its float32 peak (3.35 TB/s for the SXM's
+HBM3, 2.0 TB/s for the PCIe's HBM2e), for the preprocess roofline.
 """
 
 from __future__ import annotations
 
 import math
 
-from lipreading_tpu_torch.config import Config
+from lipreading_tpu_torch.config import Config, PreprocessConfig
 
 # dense peak FLOP/s by the product in torch.cuda.get_device_name() and dtype
 _PEAKS = {
     "H100 SXM": {"bfloat16": 989e12, "float32": 67e12},
     "H100 PCIe": {"bfloat16": 756e12, "float32": 51e12},
 }
+# memory rate in bytes/s by the same product
+_BYTES_PER_S = {"H100 SXM": 3.35e12, "H100 PCIe": 2.0e12}
 
 
 def _product(name: str) -> str | None:
@@ -47,6 +51,16 @@ def device_peak_flops(dtype: str = "bfloat16") -> float | None:
     if key is None:
         return None
     return _PEAKS[key].get(dtype, _PEAKS[key]["bfloat16"])
+
+
+def card_peaks(name: str) -> dict | None:
+    """{"bytes": bytes/s, "float32": FLOP/s} of the card that
+    ``torch.cuda.get_device_name`` calls ``name``, or None for any other
+    card (or "cpu")."""
+    key = _product(name)
+    if key is None:
+        return None
+    return {"bytes": _BYTES_PER_S[key], "float32": _PEAKS[key]["float32"]}
 
 
 def _dense(n: int, din: int, dout: int) -> float:
@@ -160,6 +174,32 @@ def model_fwd_flops(cfg: Config, T: int, L: int) -> float:
 def train_step_flops(cfg: Config, B: int, T: int, L: int) -> float:
     """fwd + bwd ~= 3x fwd (the standard dense-training rule)."""
     return 3.0 * B * model_fwd_flops(cfg, T, L)
+
+
+def preprocess_flops(pre: PreprocessConfig, H: int, W: int) -> float:
+    """Per-frame forward FLOPs of detect + ERT + fused ROI.
+
+    Counts the matmul work as the JAX package implements it on the TPU: its
+    ERT gathers each stage's P pixels by one-hot matmuls over the face crop
+    (64x64 sample grid), more FLOPs than the scalar tree walk on purpose.
+    The port's ERT takes the pixels by index (``ops/ert.py``) and does not
+    do those one-hot FLOPs; the count stays the JAX one, so the two
+    packages' preprocess MFU share a numerator."""
+    D = 64                                  # detector input
+    # resize to 64 as two matmuls, then conv trunk (channels 8, 16, 32)
+    f = 2.0 * D * H * W + 2.0 * D * W * D
+    f += 2.0 * 32 * 32 * 9 * 1 * 8 + 2.0 * 16 * 16 * 9 * 8 * 16 \
+        + 2.0 * 8 * 8 * 9 * 16 * 32 + 2.0 * 8 * 8 * 32 * 4
+    # ERT cascade: per stage, P pixel gathers via one-hot matmuls over the
+    # face crop (64x64 sample grid) + K trees x leaf one-hot matmul [NL,136]
+    S, P = pre.ert_cascades, pre.ert_pool
+    K, depth = pre.ert_trees, pre.ert_depth
+    NL = 2 ** depth
+    f += S * (2.0 * P * 64 * 64 + K * 2.0 * NL * 136)
+    # fused ROI: crop+resize as two matmuls [R,H]@[H,W] then [R,W]@[W,R]
+    R = pre.roi_size
+    f += 2.0 * R * H * W + 2.0 * R * W * R
+    return f
 
 
 def mfu(flops_per_sec: float, dtype: str = "bfloat16") -> float | None:

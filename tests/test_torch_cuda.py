@@ -836,3 +836,19 @@ def test_oracle_leg_on_the_card(cuda):
     rows = [{"name": "roi_sampler"}]
     smoke.phase_oracle("", rows)
     assert rows[0]["launches_by_path"]["oracle"] == 1
+
+
+@pytest.mark.cuda
+def test_card_timing_helpers(cuda):
+    """``profiling.cuda_ms`` and ``device_kernels`` on a matrix product:
+    positive device time, at least one device kernel recorded and within
+    the call's wall time, CPU tensors refused."""
+    from lipreading_tpu_torch import profiling
+
+    a = torch.randn(1024, 1024, device=cuda)
+    ms = profiling.cuda_ms(torch.matmul, a, a, reps=5)
+    assert 0 < ms < 100
+    wall, split = profiling.device_kernels(torch.matmul, a, a)
+    assert 0 < sum(split.values()) <= wall
+    with pytest.raises(ValueError):
+        profiling.cuda_ms(torch.matmul, a.cpu(), a.cpu())

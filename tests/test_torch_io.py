@@ -192,7 +192,15 @@ def test_port_imports_nothing_of_jax():
             "lipreading_tpu_torch/native.py",
             "lipreading_tpu_torch/csrc/lipreading_host.cpp",
             "lipreading_tpu_torch/profiling.py",
-            "lipreading_tpu_torch/data/pipeline.py"} <= names
+            "lipreading_tpu_torch/data/pipeline.py",
+            "lipreading_tpu_torch/microbench.py",
+            "lipreading_tpu_torch/bench_flash.py",
+            "lipreading_tpu_torch/roofline_preprocess.py",
+            "lipreading_tpu_torch/profile_train.py",
+            "lipreading_tpu_torch/bench_stem.py",
+            "lipreading_tpu_torch/profile_decode.py",
+            "lipreading_tpu_torch/bench_decode_knee.py",
+            "lipreading_tpu_torch/bench_ingest.py"} <= names
     for path in srcs:
         with open(path) as f:
             text = f.read()
