@@ -5750,7 +5750,7 @@ def phase_oracle(smi: str, rows) -> None:
 
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         with profiling.capture(ORACLE_DIR) as path:
-            with profiling.annotate("oracle_card_preprocess"):
+            with profiling.span("oracle_card_preprocess"):
                 card()
         names = trace_names(path)
         hit = sorted(x for x in names if "roi_sample" in x)

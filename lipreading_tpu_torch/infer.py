@@ -32,6 +32,7 @@ import os
 import numpy as np
 import torch
 
+from lipreading_tpu_torch import profiling
 from lipreading_tpu_torch.config import Config
 from lipreading_tpu_torch.fixtures import LEXICON
 from lipreading_tpu_torch.io import ASSETS_DIR
@@ -202,15 +203,19 @@ def ctc_log_probs(model: LipReader, cfg: Config, rois: torch.Tensor,
 
 
 def _on_device(model: LipReader, rois, frame_lengths):
-    """ROIs and int32 lengths (numpy or tensors) on the model's device."""
+    """ROIs and int32 lengths (numpy or tensors) on the model's device (a
+    copy from host memory waits for the device's stream)."""
     dev = next(model.parameters()).device
-    return (torch.as_tensor(rois, device=dev),
-            torch.as_tensor(frame_lengths, dtype=torch.int32, device=dev))
+    with profiling.span("wait.h2d"):
+        return (torch.as_tensor(rois, device=dev),
+                torch.as_tensor(frame_lengths, dtype=torch.int32,
+                                device=dev))
 
 
 def _texts(ids: torch.Tensor, lengths: torch.Tensor, vocab: Vocab):
     """Padded ids [B, L] and lengths [B] -> strings (specials dropped)."""
-    ids, lengths = ids.cpu().numpy(), lengths.cpu().numpy()
+    with profiling.span("wait.texts"):
+        ids, lengths = ids.cpu().numpy(), lengths.cpu().numpy()
     return [vocab.decode(ids[b, :lengths[b]]) for b in range(ids.shape[0])]
 
 
@@ -262,45 +267,54 @@ def transcribe_cascade(model: LipReader, cfg: Config, rois, frame_lengths,
     ("rescore"). ``rows`` ([B] bool, default every row) limits the rescore
     leg to those clips: the others keep their greedy transcript and are
     never flagged (the serving loop decodes them by shot, and the greedy
-    leg keeps the batch's shape)."""
-    mark = mark or (lambda stage: None)
-    vocab = vocab or Vocab()
-    beam = cfg.train.beam_width if beam is None else beam
-    rois, frame_lengths = _on_device(model, rois, frame_lengths)
-    ids, counts, conf, enc = greedy_conf(model, cfg, rois, frame_lengths)
-    out = _texts(ids, counts, vocab)
-    uncertain = conf.cpu().numpy() < margin
-    if lm_weight > 0.0 and np.isfinite(lm_margin):
-        lm = load_char_lm_host()
-        if lm is not None:
-            lm_nll = np.asarray([lm_nll_per_char(lm[0], lm[1], t, vocab)
-                                 for t in out])
-            long_enough = np.asarray([len(t) >= lm_min_chars for t in out])
-            uncertain |= (lm_nll > lm_margin) & long_enough
-    if oov_trigger:
-        if oov_words is None:
-            oov_words = set(LEXICON)
-        uncertain |= np.asarray(
-            [any(w not in oov_words for w in t.split()) for t in out])
-    if rows is not None:
-        uncertain &= np.asarray(rows, bool)
-    idx = np.nonzero(uncertain)[0]
-    mark("greedy")
-    if beam > 1 and idx.size:
-        n = idx.size
-        take = torch.from_numpy(np.concatenate(
-            [idx, np.repeat(idx[-1:], -n % rescore_bucket)])).to(enc.device)
-        lex = load_lexicon(enc.device) if use_lexicon else None
-        sids, slens = decode_ids_from_enc(model, cfg, enc[take],
-                                          frame_lengths[take], beam,
-                                          lm_weight, lexicon=lex)
-        sub = _texts(sids, slens, vocab)
-        for k, b in enumerate(idx):
-            out[int(b)] = sub[k]
-    mark("rescore")
-    if return_flags:
-        return out, uncertain
-    return out, int(idx.size)
+    leg keeps the batch's shape). Traced (``profiling``): the span
+    ``cascade`` and the counters ``cascade.calls``, and ``beam.rows`` and
+    ``beam.pad_rows`` (the rescore leg's rows, and the repeats among
+    them)."""
+    with profiling.span("cascade"):
+        profiling.count("cascade.calls")
+        mark = mark or (lambda stage: None)
+        vocab = vocab or Vocab()
+        beam = cfg.train.beam_width if beam is None else beam
+        rois, frame_lengths = _on_device(model, rois, frame_lengths)
+        ids, counts, conf, enc = greedy_conf(model, cfg, rois, frame_lengths)
+        out = _texts(ids, counts, vocab)
+        with profiling.span("wait.conf"):
+            uncertain = conf.cpu().numpy() < margin
+        if lm_weight > 0.0 and np.isfinite(lm_margin):
+            lm = load_char_lm_host()
+            if lm is not None:
+                lm_nll = np.asarray([lm_nll_per_char(lm[0], lm[1], t, vocab)
+                                     for t in out])
+                long_enough = np.asarray([len(t) >= lm_min_chars for t in out])
+                uncertain |= (lm_nll > lm_margin) & long_enough
+        if oov_trigger:
+            if oov_words is None:
+                oov_words = set(LEXICON)
+            uncertain |= np.asarray(
+                [any(w not in oov_words for w in t.split()) for t in out])
+        if rows is not None:
+            uncertain &= np.asarray(rows, bool)
+        idx = np.nonzero(uncertain)[0]
+        mark("greedy")
+        if beam > 1 and idx.size:
+            n, pad = idx.size, -idx.size % rescore_bucket
+            profiling.count("beam.rows", n + pad)
+            profiling.count("beam.pad_rows", pad)
+            with profiling.span("wait.h2d"):
+                take = torch.from_numpy(np.concatenate(
+                    [idx, np.repeat(idx[-1:], pad)])).to(enc.device)
+            lex = load_lexicon(enc.device) if use_lexicon else None
+            sids, slens = decode_ids_from_enc(model, cfg, enc[take],
+                                              frame_lengths[take], beam,
+                                              lm_weight, lexicon=lex)
+            sub = _texts(sids, slens, vocab)
+            for k, b in enumerate(idx):
+                out[int(b)] = sub[k]
+        mark("rescore")
+        if return_flags:
+            return out, uncertain
+        return out, int(idx.size)
 
 
 @torch.inference_mode()
@@ -434,8 +448,9 @@ def transcribe_segmented(model: LipReader, cfg: Config, rois, valid,
         segs = split
     if not segs:
         return "", []
-    seg_rois = [rois[torch.from_numpy(lo + np.flatnonzero(valid[lo:hi]))
-                     .to(rois.device)] for lo, hi in segs]
+    with profiling.span("wait.h2d"):
+        seg_rois = [rois[torch.from_numpy(lo + np.flatnonzero(valid[lo:hi]))
+                         .to(rois.device)] for lo, hi in segs]
     lens = [int(r.shape[0]) for r in seg_rois]
     # segments batch by length bucket: under the releases' time-pooled
     # GroupNorm a short segment padded to a long one's bucket sees other

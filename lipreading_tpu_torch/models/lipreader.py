@@ -27,6 +27,7 @@ import math
 import torch
 from torch import nn
 
+from lipreading_tpu_torch import profiling
 from lipreading_tpu_torch.config import Config
 from lipreading_tpu_torch.models import nn as lnn
 from lipreading_tpu_torch.models.attention import (
@@ -166,13 +167,25 @@ def encode(model: LipReader, cfg: Config, rois: torch.Tensor,
     encoder (``parallel/pipeline.py``), ``cfg.mesh.sequence_parallel``
     through ring attention (``parallel/ring.py``), the two exclusive and
     both refused by the bi-GRU; otherwise the plain encoder (tensor
-    parallel when its layers carry the model axis)."""
+    parallel when its layers carry the model axis).
+
+    Traced (``profiling``): the span ``model.encode``, the device span
+    ``model.stem`` over the frontend and, with gradients enabled, the
+    device span ``model.stem_backward`` from the frontend output's
+    gradient to ``profiling.backward_done()``."""
+    with profiling.span("model.encode"):
+        return _encode(model, cfg, rois, frame_lengths, dtype, gen, mesh)
+
+
+def _encode(model, cfg, rois, frame_lengths, dtype, gen, mesh):
     dtype = dtype or _act_dtype(cfg)
     rate = cfg.model.dropout
-    if cfg.train.remat and torch.is_grad_enabled():
-        feats = _frontend_remat(model, rois, dtype, gen, rate)
-    else:
-        feats = model.frontend(rois, dtype, gen, rate)
+    with profiling.span("model.stem", device=True):
+        if cfg.train.remat and torch.is_grad_enabled():
+            feats = _frontend_remat(model, rois, dtype, gen, rate)
+        else:
+            feats = model.frontend(rois, dtype, gen, rate)
+    profiling.backward_span(feats, "model.stem_backward")
     mp_live = mesh is not None and mesh.mp > 1
     sp = mp_live and cfg.mesh.sequence_parallel
     pp = mp_live and cfg.mesh.pipeline_parallel

@@ -23,7 +23,7 @@ from typing import NamedTuple
 
 import torch
 
-from lipreading_tpu_torch import kernels
+from lipreading_tpu_torch import kernels, profiling
 
 NEG_INF = -1e30
 
@@ -161,14 +161,22 @@ def early_exit_scan(body, carry, finished_of, bufs, max_len: int):
     have written (the beams: eos tokens and identity back-pointers; greedy:
     eos). Each step reads ``finished`` on the host: one device sync a step.
     ``early_exit_scan.steps`` counts the steps taken over all calls.
-    Returns (carry, bufs)."""
+    Traced (``profiling``): the spans ``wait.beam`` (each read of
+    ``finished``) and ``beam.step`` (each step's launches), and the
+    counter ``beam.steps``. Returns (carry, bufs)."""
     t = 0
-    while t < max_len and not bool(finished_of(carry).all()):
-        carry, ys = body(carry)
-        for b, y in zip(bufs, ys):
-            b[t] = y
+    while t < max_len:
+        with profiling.span("wait.beam"):
+            done = bool(finished_of(carry).all())
+        if done:
+            break
+        with profiling.span("beam.step"):
+            carry, ys = body(carry)
+            for b, y in zip(bufs, ys):
+                b[t] = y
         t += 1
     early_exit_scan.steps += t
+    profiling.count("beam.steps", t)
     return carry, bufs
 
 

@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from lipreading_tpu_torch import profiling
+
 NEG = -1e30
 
 
@@ -45,7 +47,8 @@ def track_boxes(boxes: torch.Tensor, conf: torch.Tensor, threshold: float,
         have = torch.zeros((B,), dtype=torch.bool, device=dev)
         box = torch.zeros((B, 3), dtype=boxes.dtype, device=dev)
     ar = torch.arange(B, device=dev)
-    neg = torch.tensor(NEG, dtype=conf.dtype, device=dev)
+    with profiling.span("wait.h2d"):    # a copy from host memory
+        neg = torch.tensor(NEG, dtype=conf.dtype, device=dev)
     out, valid, have_so_far = [], [], []
     for t in range(T):
         b_t, c_t = boxes[:, t], conf[:, t]                      # [B,K,3], [B,K]

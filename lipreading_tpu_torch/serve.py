@@ -70,6 +70,9 @@ import time
 
 import numpy as np
 
+from lipreading_tpu_torch import profiling
+from lipreading_tpu_torch.profiling import StageClock
+
 RESCORE_BUCKET = 8           # transcribe_cascade's default rescore_bucket
 STAGES = ("h2d", "detect", "track", "landmarks", "roi", "greedy", "rescore",
           "segmented")
@@ -95,27 +98,6 @@ def iter_batches(clips, n: int, B: int, bucket: int, hw):
             lens[k] = lens[nb - 1]
         yield frames, lens, list(range(done, done + nb))
         done += nb
-
-
-class StageClock:
-    """Host milliseconds between ``mark`` calls, each after the caller's
-    stream is synchronised on a CUDA device (only that stream: the
-    prefetcher's copy on its side stream goes on overlapping)."""
-
-    def __init__(self, device):
-        import torch
-
-        self._sync = (torch.cuda.current_stream(device).synchronize
-                      if device.type == "cuda" else (lambda: None))
-        self.ms: dict[str, float] = {}
-        self._sync()
-        self._t = time.perf_counter()
-
-    def mark(self, stage: str):
-        self._sync()
-        t = time.perf_counter()
-        self.ms[stage] = self.ms.get(stage, 0.0) + (t - self._t) * 1e3
-        self._t = t
 
 
 def load_server(release: str = "transformer_hybrid_universal4",
@@ -170,7 +152,11 @@ def serve_batch(srv: dict, frames, lens, beam: int = 8,
     ``transcribe_segmented(cascade=True)`` from its ROIs on the device,
     and is not counted as rescored. The greedy leg keeps all B rows: a
     batch of the whole clips alone would give the encoder a new row count
-    in most batches, which no warm-up covers."""
+    in most batches, which no warm-up covers.
+
+    ``mark`` a ``StageClock``'s ``mark`` also traces the batch
+    (``profiling.unit("serve.batch")``): its spans and counters add to
+    ``profiling.trace_totals()``."""
     import torch
 
     from lipreading_tpu_torch.infer import (
@@ -179,11 +165,15 @@ def serve_batch(srv: dict, frames, lens, beam: int = 8,
     )
 
     model, cfg = srv["model"], srv["cfg"]
+    clock = getattr(mark, "__self__", None)
+    traced = clock.device if isinstance(clock, StageClock) else None
     mark = mark or (lambda stage: None)
-    with torch.inference_mode():
+    with torch.inference_mode(), profiling.unit("serve.batch", traced):
         rois, valid = preprocess_batch(srv, frames, mark)
-        lens_np = lens.cpu().numpy()
-        valid_np = valid.cpu().numpy()
+        with profiling.span("wait.lengths"):
+            lens_np = lens.cpu().numpy()
+        with profiling.span("wait.valid"):
+            valid_np = valid.cpu().numpy()
         B = len(lens_np)
         segmented = np.asarray([not valid_np[k, :lens_np[k]].all()
                                 for k in range(B)])
@@ -196,9 +186,10 @@ def serve_batch(srv: dict, frames, lens, beam: int = 8,
                 rows=~segmented)
         for k in np.flatnonzero(segmented):
             n = int(lens_np[k])
-            texts[k], _ = transcribe_segmented(
-                model, cfg, rois[k, :n], valid_np[k, :n], cascade=True,
-                beam=beam, lm_weight=lm_weight)
+            with profiling.span("serve.clip"):
+                texts[k], _ = transcribe_segmented(
+                    model, cfg, rois[k, :n], valid_np[k, :n], cascade=True,
+                    beam=beam, lm_weight=lm_weight)
         mark("segmented")
     return texts, flags, segmented
 

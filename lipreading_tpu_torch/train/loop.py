@@ -48,6 +48,7 @@ Every rank evaluates on the whole held-out batches with whole parameters.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -55,6 +56,7 @@ import time
 import numpy as np
 import torch
 
+from lipreading_tpu_torch import profiling
 from lipreading_tpu_torch.config import Config
 from lipreading_tpu_torch.data.dataset import Batch, batch_to_device
 from lipreading_tpu_torch.io import from_jax_params, to_jax_params
@@ -134,22 +136,8 @@ class _Silent:
     log_text = log
 
 
-class _StageClock:
-    """Host-clock milliseconds of a step's stages, each closed by a
-    synchronise of the device (off unless a dict is given)."""
-
-    def __init__(self, out: dict | None, device: torch.device):
-        self.out, self.device = out, device
-        self.t = time.perf_counter()
-
-    def mark(self, name: str) -> None:
-        if self.out is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.out[name] = self.out.get(name, 0.0) + (now - self.t) * 1e3
-        self.t = now
+def _no_mark(stage: str) -> None:
+    pass
 
 
 def _batch_dims(batch):
@@ -210,20 +198,21 @@ class Trainer:
             self.mesh.data_index if self.mesh.dp > 1 else None))
         return gen
 
-    def _update(self, model_batch: dict, gen, clock: _StageClock) -> dict:
+    def _update(self, model_batch: dict, gen, mark) -> dict:
         for p in self.model.parameters():
             p.grad = None
         mesh = self.mesh if self.mesh.distributed else None
         loss, metrics = compute_loss(self.model, self.cfg, model_batch,
                                      train=True, gen=gen, mesh=mesh)
-        clock.mark("forward")
+        mark("forward")
         loss.backward()
-        clock.mark("backward")
+        profiling.backward_done()
+        mark("backward")
         if mesh is not None:
             reduce_gradients(self.model, mesh, self.cfg)
-            clock.mark("reduce")
+            mark("reduce")
         metrics["grad_norm"] = self.opt.update()
-        clock.mark("optimizer")
+        mark("optimizer")
         metrics = {k: v.detach() for k, v in metrics.items()}
         if mesh is not None and mesh.data.group is not None:
             # each rank's losses are its shares of the global means
@@ -255,13 +244,29 @@ class Trainer:
         rank's rows); returns the step's metrics as tensors (loss, ctc_loss,
         att_loss, grad_norm; over a mesh the global batch's).
         ``stage_ms``, if given, receives each stage's synchronised host
-        milliseconds."""
-        clock = _StageClock(stage_ms, self.device)
-        dev = self.device_batch(self.check_rows(batch))
-        clock.mark("host_to_device")
-        metrics = self._update(dev, self.step_generator(), clock)
-        self.step += 1
+        milliseconds, and the step is traced
+        (``profiling.unit("train.step")``)."""
+        with self._traced(stage_ms) as mark:
+            dev = self.device_batch(self.check_rows(batch))
+            mark("host_to_device")
+            metrics = self._update(dev, self.step_generator(), mark)
+            self.step += 1
         return metrics
+
+    @contextlib.contextmanager
+    def _traced(self, stage_ms: dict | None):
+        """A step traced from entry to return, yielding the mark of its
+        stage clock (``profiling.StageClock`` over the whole device), where
+        ``stage_ms`` is given; else untraced, with a mark that does
+        nothing."""
+        if stage_ms is None:
+            mark, traced = _no_mark, None
+        else:
+            mark = profiling.StageClock(self.device, stage_ms,
+                                        whole_device=True).mark
+            traced = self.device
+        with profiling.unit("train.step", traced):
+            yield mark
 
     # --- the loop ------------------------------------------------------------
 
@@ -486,14 +491,14 @@ class FusedTrainer(Trainer):
         """One update from a ``VideoBatch``; see ``Trainer.train_step``."""
         from lipreading_tpu_torch.data.pipeline import video_batch_to_device
 
-        clock = _StageClock(stage_ms, self.device)
-        dev = video_batch_to_device(self.check_rows(batch), self.device)
-        clock.mark("host_to_device")
-        gen = self.step_generator()
-        mb = self.model_batch(dev)
-        clock.mark("preprocess")
-        metrics = self._update(mb, gen, clock)
-        self.step += 1
+        with self._traced(stage_ms) as mark:
+            dev = video_batch_to_device(self.check_rows(batch), self.device)
+            mark("host_to_device")
+            gen = self.step_generator()
+            mb = self.model_batch(dev)
+            mark("preprocess")
+            metrics = self._update(mb, gen, mark)
+            self.step += 1
         return metrics
 
     def eval_inputs(self, batch):

@@ -40,6 +40,7 @@ import math
 import numpy as np
 import torch
 
+from lipreading_tpu_torch import profiling
 from lipreading_tpu_torch.config import TrainConfig
 
 B1, B2, EPS, EPS_ROOT = 0.9, 0.999, 1e-8, 0.0
@@ -106,8 +107,9 @@ class AdamW:
             norm = global_norm(grads)
         else:
             norm = self._tp_norm(names, grads)
-        clip = torch.as_tensor(self.t.grad_clip, dtype=norm.dtype,
-                               device=norm.device)
+        with profiling.span("wait.h2d"):   # a copy from host memory
+            clip = torch.as_tensor(self.t.grad_clip, dtype=norm.dtype,
+                                   device=norm.device)
         trigger = norm < clip
         # optax: select(norm < max, g, (g / norm) * max)
         div = torch.where(trigger, torch.ones_like(norm), norm)

@@ -1,7 +1,7 @@
 """The port's tracing and timing helpers (``lipreading_tpu_torch/
 profiling.py``) on the CPU: ``Timer`` counts its calls and returns seconds
-a call, ``capture`` writes a Chrome trace that names an ``annotate``
-region, and ``device_memory_stats`` is empty without a CUDA device."""
+a call, ``capture`` writes a Chrome trace that names a ``span``, and
+``device_memory_stats`` is empty without a CUDA device."""
 
 import json
 import time
@@ -33,8 +33,8 @@ def test_timer_returns_seconds_a_call_after_warmup():
 
 def test_capture_writes_a_trace_naming_an_annotated_region(tmp_path):
     with profiling.capture(str(tmp_path / "trace")) as path:
-        with profiling.annotate("roi_stage"):
-            with profiling.annotate("inner_matmul"):
+        with profiling.span("roi_stage"):
+            with profiling.span("inner_matmul"):
                 torch.ones(64, 64) @ torch.ones(64, 64)
     assert path.startswith(str(tmp_path / "trace"))
     with open(path) as f:
