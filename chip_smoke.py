@@ -35,9 +35,10 @@ Phases, each of which must pass:
    same run on the CPU (plain versions there);
 5. drive the training path: ``FusedTrainer`` warm-started from the release,
    full width and depth, with the release's dropout and ROI jitter, on a
-   fixture corpus at batch 8: a few steps with finite losses and one
-   launch of the ROI and of each CTC lattice kernel per step (counts set to
-   0 just before, read just after), the time of each stage of a step, then
+   fixture corpus at batch 8: a few steps with finite losses, one launch
+   of the ROI and of each CTC lattice kernel and two of ``conv3d_dgrad``
+   (the patchify stem's convA and convB) per step (counts set to 0 just
+   before, read just after), the time of each stage of a step, then
    steps on one fixed batch whose loss must fall, and a checkpoint saved and
    reloaded with equal parameters;
 6. one step without dropout or jitter on 2 clips on the card and on the CPU
@@ -70,6 +71,21 @@ Flash attention (``model.flash_attention=1``) adds three phases:
   too), one float32 step's gradient of pallas and fused against
   xla within limits that a planted fault must break, a fixed batch whose
   loss falls, and peak memory with flash on and off.
+
+``[conv-dgrad]`` holds the stride-1 convolutions' data-gradient kernel
+(``models/nn.conv3d_dgrad``, ``csrc/conv3d_dgrad.cu``) against its plain
+version at odd shapes and at the four stem shapes of the training cells
+(B 64 x T 96: conv1 24x24 3x5x5 32 <- 64, conv2 12x12 3x3x3 64 <- 96,
+convA 6x6 and convB 3x3 3x3x3 256 <- 256), within a limit that a planted
+fault (the weight left unflipped) must break, two launches the same
+bytes; times the kernel (CUDA events around its bare C entry), the
+wrapper, the plain version and cuDNN's dgrad on the layouts the old path
+handed it (CUDA events; torch.profiler names cuDNN's kernel) beside the
+bf16 FLOP bound, and cuDNN's data gradient in three other forms (a forward
+convolution of dY with the flipped weight; its backward on operands all
+channels_last_3d or all NCDHW); and holds ``nn.conv3d``'s forward and
+weight gradient to the old path's bytes, with the routing counter and the
+launches.
 
 ``[cascade]`` drives cascade decoding as the JAX server decodes (beam 8,
 char-LM weight 0.4): the short clips of ``[path]`` through
@@ -175,8 +191,9 @@ four phases:
   every result present, 2 ROI launches, the stage split, the first 4
   clips equal to the CPU's;
 * ``[train-bigru]``: ``FusedTrainer`` from ``bigru_ctc`` (batch 8, buckets
-  32-128, the release's training config): finite losses, one ROI and one
-  launch of each CTC kernel a step, the stages; a fixed batch's loss falls
+  32-128, the release's training config): finite losses, one ROI, one
+  launch of each CTC kernel and two of ``conv3d_dgrad`` (the conv3d stem's
+  conv1 and conv2) a step, the stages; a fixed batch's loss falls
   from the seeded initialisation; a bf16 step card against CPU within
   ``[parity]``'s kind of limits that a length one short breaks; a float32
   ``decoder=hybrid`` model (the Bahdanau decoder): its teacher-forced
@@ -388,6 +405,27 @@ FLASH_REPLACES = {
 }
 FLASH_ROW = {"fwd": "flash_fwd", "fused": "flash_bwd_fused",
              "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
+# [conv-dgrad]: the stem convolutions' data gradients at the training
+# cells' shapes, B 64 x T 96 (name, H = W, kernel, Cin, Cout): the conv3d
+# stem's conv1 and conv2, the patchify stem's convA and convB
+DGRAD_B, DGRAD_T = 64, 96
+DGRAD_SHAPES = (("conv1", 24, (3, 5, 5), 32, 64),
+                ("conv2", 12, (3, 3, 3), 64, 96),
+                ("convA", 6, (3, 3, 3), 256, 256),
+                ("convB", 3, (3, 3, 3), 256, 256))
+# correctness only, (B, T, H, W, kernel, Cin, Cout): ragged last blocks,
+# channels padded to 8 by the wrapper, every N tile, a chunk of Cout cut
+# short, kernels without spatial or time taps
+DGRAD_ODD = ((1, 5, 7, 9, (3, 5, 5), 8, 16), (2, 3, 5, 5, (3, 3, 3), 24, 40),
+             (1, 4, 6, 6, (1, 1, 1), 300, 72), (3, 2, 4, 3, (3, 1, 3), 96, 200),
+             (1, 1, 1, 1, (3, 3, 3), 12, 20), (2, 3, 5, 4, (1, 3, 3), 128, 8),
+             (1, 7, 3, 2, (5, 1, 1), 5, 3))
+# largest |kernel - plain| / largest |plain|, plain in float32 from the same
+# bf16 operands: the kernel rounds its float32 sums to bf16 once
+# (2^-9 of a value); the planted fault (the weight left unflipped) must
+# break it at every cell shape
+DGRAD_LIMIT = 1e-2
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 on the tensor cores
 # the source of each row's (bf16) kernel
 FLASH_SOURCE = dict.fromkeys(
     FLASH_ROW, "lipreading_tpu_torch/csrc/flash_attention_sm90.cu")
@@ -730,7 +768,8 @@ def fixture_batch():
 
 SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "UBLKCP")
 # sources whose kernels must not spill
-NO_SPILL_SOURCES = ("sm90", "ctc_lattice", "roi_sampler", "ctc_greedy")
+NO_SPILL_SOURCES = ("sm90", "ctc_lattice", "roi_sampler", "ctc_greedy",
+                    "conv3d_dgrad")
 
 
 def sass_counts(path: str) -> dict:
@@ -813,7 +852,8 @@ def phase_build():
                 regs[entry] = int(m.group(1))
     if kernels.STATE.build_seconds:
         check(spills and not any(spills.values()),
-              f"Hopper flash, CTC lattice, ROI or greedy kernels spill: "
+              f"Hopper flash, CTC lattice, ROI, greedy or conv3d data-gradient "
+              f"kernels spill: "
               f"{spills}")
         # before any launch: a count below this would leave setmaxnreg
         # waiting for registers that no warp frees
@@ -848,6 +888,15 @@ def phase_build():
         f"{k} {c['LDGSTS']} LDGSTS" for k, c in sorted(staged.items())))
     check(len(staged) == 5 and all(c["LDGSTS"] > 0 for c in staged.values()),
           f"staged ROI or greedy kernels without cp.async: {staged}")
+    # every instance of the convolution's data gradient: wgmma and cp.async
+    dgrad = {k: c for k, c in by_kernel.items()
+             if k.startswith("dgrad_kernel<")}
+    log("[build] SASS of the conv3d data gradient: " + "; ".join(
+        f"{k} {c['HGMMA']} HGMMA, {c['LDGSTS']} LDGSTS"
+        for k, c in sorted(dgrad.items())))
+    check(len(dgrad) == 4 and all(c["HGMMA"] > 0 and c["LDGSTS"] > 0
+                                  for c in dgrad.values()),
+          f"conv3d data-gradient kernels without wgmma or cp.async: {dgrad}")
 
 
 def nvidia_smi_line() -> str:
@@ -1953,6 +2002,280 @@ def phase_flash_kernels() -> list[dict]:
     return [rows[n] for n in ("fwd", "fused", "dq", "dkv")]
 
 
+def dgrad_inputs(B, T, H, W, kernel, cin, cout, seed: int):
+    """bf16 dY [B, T, H, W, Cout] and w [*kernel, Cin, Cout] (He-scaled) on
+    the card, from a seed."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    dy = torch.randn((B, T, H, W, cout), generator=g)
+    fan = kernel[0] * kernel[1] * kernel[2] * cin
+    w = torch.randn((*kernel, cin, cout), generator=g) * (2.0 / fan) ** 0.5
+    return (dy.to(torch.bfloat16).cuda(), w.to(torch.bfloat16).cuda())
+
+
+def dgrad_err(got, want) -> float:
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def conv_dgrad_function(name, H, kernel, cin, cout) -> dict:
+    """nn.conv3d on a bf16 input that needs a gradient (the kernel's path)
+    against autograd through the same cuDNN convolution (the old path):
+    forward and weight gradient the same bytes; the input gradients, each
+    against the plain version, and the routing counter."""
+    import torch
+
+    from lipreading_tpu_torch import profiling
+    from lipreading_tpu_torch.models import nn as lnn
+
+    B, T = 8, DGRAD_T
+    g = torch.Generator(device="cpu").manual_seed(7)
+    x = torch.randn((B, T, H, H, cin), generator=g).to(torch.bfloat16).cuda()
+    w = (torch.randn((*kernel, cin, cout), generator=g) * 0.05).cuda()
+    b = (torch.randn((cout,), generator=g) * 0.1).cuda()
+    gy = torch.randn((B, T, H, H, cout), generator=g).to(
+        torch.bfloat16).cuda()
+    out = {}
+    for path in ("old", "new"):
+        xr = x.clone().requires_grad_()
+        wr = w.clone().requires_grad_()
+        before = profiling.trace_totals()["counters"].get("conv3d.dgrad", 0)
+        launches = lnn.conv3d_dgrad.launches
+        with profiling.unit("smoke.conv", "cuda"):
+            if path == "old":
+                y = lnn._conv(xr, wr.to(torch.bfloat16), (1, 1, 1))[0] + b.to(
+                    torch.bfloat16)
+            else:
+                y = lnn.conv3d(xr, wr, b, (1, 1, 1), torch.bfloat16)
+        dx, dw = torch.autograd.grad(y, (xr, wr), gy)
+        torch.cuda.synchronize()
+        counted = (profiling.trace_totals()["counters"].get("conv3d.dgrad", 0)
+                   - before)
+        out[path] = (y, dx, dw, counted, lnn.conv3d_dgrad.launches - launches)
+    plain = lnn.conv3d_dgrad_plain(gy, w.to(torch.bfloat16))
+    same_y = torch.equal(out["old"][0], out["new"][0])
+    same_dw = torch.equal(out["old"][2], out["new"][2])
+    e_new, e_old = dgrad_err(out["new"][1], plain), dgrad_err(out["old"][1],
+                                                              plain)
+    log(f"[conv-dgrad] {name} nn.conv3d (B {B}): forward the same bytes "
+        f"{same_y}, weight gradient the same bytes {same_dw}; input gradient "
+        f"vs plain {e_new:.3g} (kernel) and {e_old:.3g} (cuDNN, the old "
+        f"path); counter conv3d.dgrad {out['new'][3]} / {out['old'][3]} "
+        f"(new / old), launches {out['new'][4]} / {out['old'][4]}")
+    check(same_y and same_dw, f"[conv-dgrad] {name}: the forward or the "
+          "weight gradient differs from the old path's")
+    check(e_new <= DGRAD_LIMIT, f"[conv-dgrad] {name}: input gradient "
+          f"{e_new} > {DGRAD_LIMIT}")
+    check(out["new"][3:] == (1, 1) and out["old"][3:] == (0, 0),
+          f"[conv-dgrad] {name}: counted / launched {out['new'][3:]} new, "
+          f"{out['old'][3:]} old; want (1, 1) and (0, 0)")
+    # no gradient, stride 2, float32: the old path, nothing counted
+    before = profiling.trace_totals()["counters"].get("conv3d.dgrad", 0)
+    launches = lnn.conv3d_dgrad.launches
+    with profiling.unit("smoke.conv", "cuda"):
+        xr = x.clone().requires_grad_()
+        with torch.no_grad():
+            lnn.conv3d(xr, w, b, (1, 1, 1), torch.bfloat16)
+        lnn.conv3d(xr, w, b, (1, 2, 2), torch.bfloat16).float().sum().backward()
+        lnn.conv3d(xr.float().detach().requires_grad_(), w, b,
+                   (1, 1, 1)).sum().backward()
+    torch.cuda.synchronize()
+    other = (profiling.trace_totals()["counters"].get("conv3d.dgrad", 0)
+             - before, lnn.conv3d_dgrad.launches - launches)
+    check(other == (0, 0), f"[conv-dgrad] {name}: no-grad, stride-2 or "
+          f"float32 calls counted / launched {other}")
+    return {"same_forward": same_y, "same_wgrad": same_dw,
+            "err_kernel": e_new, "err_cudnn": e_old}
+
+
+def dgrad_library_forms(dy, w, xc, plain) -> dict:
+    """cuDNN's data gradient in the forms the old path did not hand it:
+    ``forward``, a forward convolution of dY (pads (k - 1) / 2, the stems'
+    odd kernels) with the weight flipped over its taps and transposed, all
+    in channels_last_3d; ``backward_cl`` and ``backward_ncdhw``,
+    ``aten.convolution_backward`` with [True, False, False] on dY, the
+    padded input and the weight all made contiguous in channels_last_3d or
+    in NCDHW -> {form: (ms a call with the layout copies inside, CUDA
+    events over 20 calls; |form - plain| as ``dgrad_err``; its top 3
+    device operations, torch.profiler's)}."""
+    import torch
+    import torch.nn.functional as F
+
+    from lipreading_tpu_torch.models import nn as lnn
+
+    cl = torch.channels_last_3d
+    k = tuple(w.shape[:3])
+    T, H, W = dy.shape[1:4]
+    dyc = dy.permute(0, 4, 1, 2, 3)
+    wp = w.permute(4, 3, 0, 1, 2)
+    pad = tuple((kk - 1) // 2 for kk in k)
+    pads = [p for n, kk in zip((W, H, T), k[::-1])
+            for p in lnn._same_pads(n, kk, 1)]
+
+    def forward():
+        wf = w.flip(0, 1, 2).permute(3, 4, 0, 1, 2).contiguous(
+            memory_format=cl)
+        return F.conv3d(dyc.contiguous(memory_format=cl), wf, padding=pad)
+
+    def backward(fmt):
+        def run():
+            return torch.ops.aten.convolution_backward(
+                dyc.contiguous(memory_format=fmt),
+                xc.contiguous(memory_format=fmt),
+                wp.contiguous(memory_format=fmt), None, [1, 1, 1], [0, 0, 0],
+                [1, 1, 1], False, [0, 0, 0], 1, [True, False, False])[0]
+        return run
+
+    def crop(dxc):
+        return dxc[:, :, pads[4]:pads[4] + T, pads[2]:pads[2] + H,
+                   pads[0]:pads[0] + W]
+
+    forms = {"forward": (forward, lambda d: d),
+             "backward_cl": (backward(cl), crop),
+             "backward_ncdhw": (backward(torch.contiguous_format), crop)}
+    out = {}
+    for form, (fn, view) in forms.items():
+        err = dgrad_err(view(fn()).permute(0, 2, 3, 4, 1), plain)
+        # as for ``library`` in phase_conv_dgrad; once for cuDNN's grouped
+        # fallback (~2 s a call)
+        _, split = device_ms(fn, 2)
+        f_ms = time_ms(fn, 1 if max(split.values()) > 100 else 20)
+        top = sorted(split.items(), key=lambda kv: -kv[1])[:3]
+        out[form] = (f_ms, err, top)
+    return out
+
+
+def phase_conv_dgrad() -> list[dict]:
+    """[conv-dgrad]: ``models/nn.conv3d_dgrad`` (the Hopper kernel) against
+    its plain version at odd shapes and at the four stem shapes of the
+    training cells, a planted fault (the weight left unflipped) at each,
+    two launches byte for byte; its device time (CUDA events around the
+    bare C entry), the wrapper's, the plain version's and cuDNN's dgrad
+    (``aten.convolution_backward`` with [True, False, False] on the
+    layouts the old path handed it: CUDA events, torch.profiler naming
+    cuDNN's kernel) and cuDNN's other forms (``dgrad_library_forms``)
+    beside the bf16 FLOP bound; the nn.conv3d path
+    (``conv_dgrad_function``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from lipreading_tpu_torch import kernels
+    from lipreading_tpu_torch.models import nn as lnn
+
+    t_phase = time.perf_counter()
+    for i, (B, T, H, W, k, cin, cout) in enumerate(DGRAD_ODD):
+        dy, w = dgrad_inputs(B, T, H, W, k, cin, cout, 100 + i)
+        err = dgrad_err(lnn.conv3d_dgrad(dy, w), lnn.conv3d_dgrad_plain(dy, w))
+        torch.cuda.synchronize()
+        log(f"[conv-dgrad] B {B} T {T} H {H} W {W} kernel {k} {cin} <- "
+            f"{cout}: kernel vs plain {err:.3g} (limit {DGRAD_LIMIT})")
+        check(err <= DGRAD_LIMIT, f"[conv-dgrad] odd shape {i}: {err}")
+    out = {}
+    for j, (name, H, k, cin, cout) in enumerate(DGRAD_SHAPES):
+        B, T = DGRAD_B, DGRAD_T
+        dy, w = dgrad_inputs(B, T, H, H, k, cin, cout, 200 + j)
+        before = lnn.conv3d_dgrad.launches
+        got = lnn.conv3d_dgrad(dy, w)
+        launches = lnn.conv3d_dgrad.launches - before
+        again = lnn.conv3d_dgrad(dy, w)
+        plain = lnn.conv3d_dgrad_plain(dy, w)
+        fault = lnn.conv3d_dgrad(dy, w.flip(0, 1, 2))
+        torch.cuda.synchronize()
+        err, err_fault = dgrad_err(got, plain), dgrad_err(fault, plain)
+        same = torch.equal(got, again)
+        del again, fault
+        # the bare C entry, as the wrapper calls it
+        wt, q = lnn._dgrad_operands(w, (T, H, H))
+        wt = wt.contiguous()
+        dx = torch.empty_like(got)
+        stream = kernels.stream_ptr(dy.device)
+        lib = kernels.lib()
+
+        def bare():
+            return lib.conv3d_dgrad(dy.data_ptr(), wt.data_ptr(),
+                                    dx.data_ptr(), B, T, H, H, cin, cout,
+                                    *k, *q, stream)
+
+        kernels.check(bare(), "conv3d_dgrad")
+        ms = time_ms(bare, 20)
+        wrapper_ms = time_ms(lambda: lnn.conv3d_dgrad(dy, w), 20)
+        plain_ms = time_ms(lambda: lnn.conv3d_dgrad_plain(dy, w), 2)
+        # cuDNN's dgrad on the old path's layouts (the padded NCDHW input
+        # that F.pad leaves, dY and w as permuted views)
+        pads = []
+        for axis, kk in zip((H, H, T), k[::-1]):
+            pads.extend(lnn._same_pads(axis, kk, 1))
+        xc = F.pad(torch.zeros((B, T, H, H, cin), dtype=torch.bfloat16,
+                               device="cuda").permute(0, 4, 1, 2, 3), pads)
+        dyc, wp = dy.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2)
+
+        def library():
+            return torch.ops.aten.convolution_backward(
+                dyc, xc, wp, None, [1, 1, 1], [0, 0, 0], [1, 1, 1], False,
+                [0, 0, 0], 1, [True, False, False])[0]
+
+        lib_dx = library()[:, :, pads[4]:pads[4] + T, pads[2]:pads[2] + H,
+                           pads[0]:pads[0] + H].permute(0, 2, 3, 4, 1)
+        err_lib = dgrad_err(lib_dx, plain)
+        del lib_dx
+        # the profile names cuDNN's kernels, CUDA events time them (a
+        # profile can lose the first call's kernels and read half)
+        _, split = device_ms(library, 2)
+        library_ms = time_ms(library, 1 if max(split.values()) > 100 else 20)
+        alt = dgrad_library_forms(dy, w, xc, plain)
+        del xc, plain
+        taps = k[0] * k[1] * k[2]
+        M = B * T * H * H
+        ops = 2.0 * M * cin * taps * cout
+        nbytes = 2.0 * (M * cout + M * cin + taps * cin * cout)
+        t_ops, t_bytes = ops / BF16_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        bound, by = max((t_ops, "operations"), (t_bytes, "bytes"))
+        top = sorted(split.items(), key=lambda kv: -kv[1])[:3]
+        log(f"[conv-dgrad] {name} (B {B} T {T} {H}x{H}, kernel {k}, {cin} <- "
+            f"{cout}): kernel vs plain {err:.3g}, planted fault (weight "
+            f"unflipped) {err_fault:.3g}, limit {DGRAD_LIMIT}; cuDNN vs "
+            f"plain {err_lib:.3g}; two launches the same bytes {same}; "
+            f"{launches} launch a call")
+        log(f"[conv-dgrad] {name}: kernel device {ms:.4f} ms (CUDA events "
+            f"around the bare C entry; wrapper {wrapper_ms:.4f}), plain "
+            f"{plain_ms:.4f} ms, cuDNN dgrad {library_ms:.4f} ms (events) "
+            f"({'; '.join(f'{n[:72]} {v:.4f}' for n, v in top)}); bound "
+            f"{bound:.4f} ms ({by}: {ops / 1e12:.4f} TFLOP at 989 TFLOP/s, "
+            f"{nbytes / 1e9:.4f} GB at 3.35 TB/s) -> the kernel at "
+            f"{bound / ms:.1%} of it, {ops / ms / 1e9:.1f} TFLOP/s, "
+            f"{library_ms / ms:.2f}x cuDNN's speed")
+        check(err <= DGRAD_LIMIT < err_fault, f"[conv-dgrad] {name}: kernel "
+              f"{err}, fault {err_fault}, limit {DGRAD_LIMIT}")
+        check(same and launches == 1, f"[conv-dgrad] {name}: same bytes "
+              f"{same}, launches {launches}")
+        for form, (a_ms, a_err, a_top) in alt.items():
+            log(f"[conv-dgrad] {name}: cuDNN {form} {a_ms:.4f} ms (CUDA "
+                f"events; {a_ms / ms:.2f}x the kernel's time; vs plain "
+                f"{a_err:.3g}; "
+                f"{'; '.join(f'{n[:72]} {v:.4f}' for n, v in a_top)})")
+        out[name] = dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound, bound_by=by,
+                         err=err, err_fault=err_fault, err_cudnn=err_lib,
+                         cudnn_kernels=[n for n, _ in top],
+                         library_forms={f: v[0] for f, v in alt.items()})
+        del dy, w, got, dx, wt
+        torch.cuda.empty_cache()
+    fn = {name: conv_dgrad_function(name, H, k, cin, cout)
+          for name, H, k, cin, cout in DGRAD_SHAPES}
+    log(f"[conv-dgrad] phase {time.perf_counter() - t_phase:.1f} s")
+    return [dict(name="conv3d_dgrad", route="cuda",
+                 source="lipreading_tpu_torch/csrc/conv3d_dgrad.cu",
+                 replaces=None, launches=None,     # [train]'s, a step's 2
+                 max_abs_err=max(v["err"] for v in out.values()),
+                 ms=out["conv1"]["ms"], plain_ms=out["conv1"]["plain_ms"],
+                 bound_ms=out["conv1"]["bound_ms"],
+                 bound_by=out["conv1"]["bound_by"],
+                 library_ms=out["conv1"]["library_ms"],
+                 wrapper_ms=out["conv1"]["wrapper_ms"], shapes=out,
+                 function=fn)]
+
+
 def render_long(i: int):
     """Long fixture clip ``i`` (LONG_TEXTS[i], about 4 frames a character)
     -> (frames [T, H, W, 3] uint8, text). Runs in a worker process."""
@@ -2920,6 +3243,7 @@ def phase_train(gpu, rows):
         FixtureVideoDataset,
         VideoBatchIterator,
     )
+    from lipreading_tpu_torch.models.nn import conv3d_dgrad
     from lipreading_tpu_torch.ops.ctc import ctc_lattice_bwd, ctc_lattice_fwd
     from lipreading_tpu_torch.ops.roi import sample_rois
 
@@ -2938,9 +3262,13 @@ def phase_train(gpu, rows):
     torch.cuda.synchronize()
 
     wrappers = {"roi_sampler": sample_rois, "ctc_lattice_fwd": ctc_lattice_fwd,
-                "ctc_lattice_bwd": ctc_lattice_bwd}
-    for w in wrappers.values():
-        w.launches = 0
+                "ctc_lattice_bwd": ctc_lattice_bwd,
+                "conv3d_dgrad": conv3d_dgrad}
+    # launches a step: the patchify stem's two stride-1 convolutions (convA,
+    # convB) take their input gradient from the conv3d_dgrad kernel
+    per_step = {"roi_sampler": 1, "ctc_lattice_fwd": 1, "ctc_lattice_bwd": 1,
+                "conv3d_dgrad": 2}
+    reset(wrappers.values())
     step_ms, frames, losses = [], 0, []
     for _ in range(TRAIN_STEPS):
         batch = next(it)
@@ -2952,7 +3280,7 @@ def phase_train(gpu, rows):
         losses.append({k: float(v) for k, v in m.items()})
     launches = {k: w.launches for k, w in wrappers.items()}
     for r in rows:
-        if r["name"] in ("ctc_lattice_fwd", "ctc_lattice_bwd"):
+        if r["name"] in ("ctc_lattice_fwd", "ctc_lattice_bwd", "conv3d_dgrad"):
             r["launches"] = launches[r["name"]]
     for i, m in enumerate(losses):
         log(f"[train]   step {i + 2}: loss {m['loss']:.4f} ctc "
@@ -2967,8 +3295,8 @@ def phase_train(gpu, rows):
         check(all(map(lambda v: v == v and abs(v) != float("inf"),
                       m.values())), f"non-finite step metrics {m}")
     for k, v in launches.items():
-        check(v == TRAIN_STEPS, f"{k}: {v} launches in {TRAIN_STEPS} "
-              "training steps, want one per step")
+        check(v == per_step[k] * TRAIN_STEPS, f"{k}: {v} launches in "
+              f"{TRAIN_STEPS} training steps, want {per_step[k]} per step")
 
     # where a step's time goes: each stage closed by a synchronise
     stages = {}
@@ -3946,7 +4274,7 @@ def phase_conv3d(frames, lengths, texts, gpu_patchify, rows):
     from lipreading_tpu_torch.models.lipreader import _act_dtype
 
     t_phase = time.perf_counter()
-    wrappers = path_wrappers()
+    wrappers = {**path_wrappers(), "conv3d_dgrad": lnn.conv3d_dgrad}
     gpu = load_port("cuda", release=CONV3D_RELEASE)
     cpu = load_port("cpu", release=CONV3D_RELEASE)
     m = gpu["cfg"].model
@@ -3966,7 +4294,8 @@ def phase_conv3d(frames, lengths, texts, gpu_patchify, rows):
         log(f"[conv3d] bucket {bucket}: greedy {ms:.1f} ms host clock, "
             f"launches {n}, CER {corpus_cer(hyps, texts):.4f}, CPU "
             f"transcripts {'equal' if cpu_hyps == hyps else 'DIFFER'}")
-        check(n["roi_sampler"] == 1 and n["ctc_greedy"] == 1,
+        check(n["roi_sampler"] == 1 and n["ctc_greedy"] == 1
+              and n["conv3d_dgrad"] == 0,
               f"[conv3d] bucket {bucket}: launches {n}")
         check(cpu_hyps == hyps, f"[conv3d] bucket {bucket}: card {hyps} != "
               f"CPU {cpu_hyps}")
@@ -4065,13 +4394,13 @@ def phase_serve_bigru(rows):
 
 def phase_train_bigru(gpu, cpu, rows):
     """[train-bigru]: FusedTrainer from the bigru_ctc release (batch 8,
-    buckets 32-128, the release's training config): finite losses, one ROI
-    and one launch of each CTC kernel a step, the stages; a fixed batch's
-    loss falls from the seeded initialisation; one bf16 step card vs CPU
-    within [parity]'s kind of limits that lengths one short break; one
-    float32 hybrid step (the Bahdanau decoder) whose teacher-forced logits
-    card vs CPU stay within a limit the attention mask off breaks; one step
-    at teacher_forcing 0.5."""
+    buckets 32-128, the release's training config): finite losses, one ROI,
+    one launch of each CTC kernel and two of conv3d_dgrad a step, the
+    stages; a fixed batch's loss falls from the seeded initialisation; one
+    bf16 step card vs CPU within [parity]'s kind of limits that lengths one
+    short break; one float32 hybrid step (the Bahdanau decoder) whose
+    teacher-forced logits card vs CPU stay within a limit the attention
+    mask off breaks; one step at teacher_forcing 0.5."""
     import dataclasses
 
     import torch
@@ -4084,13 +4413,16 @@ def phase_train_bigru(gpu, cpu, rows):
     )
     from lipreading_tpu_torch.io import load_release
     from lipreading_tpu_torch.models import attention
+    from lipreading_tpu_torch.models import nn as lnn
     from lipreading_tpu_torch.models.lipreader import (
         attention_logits,
         encode,
     )
 
     t_phase = time.perf_counter()
-    wrappers = path_wrappers()
+    # the conv3d stem's conv1 and conv2 take their input gradient from the
+    # conv3d_dgrad kernel: two launches a step
+    wrappers = {**path_wrappers(), "conv3d_dgrad": lnn.conv3d_dgrad}
     wd = TRAIN_DIR + "_bigru"
     tree, cfg = load_release(BIGRU_RELEASE)
     cfg = cfg.override(**{"data.batch_size": 8})
@@ -4120,9 +4452,10 @@ def phase_train_bigru(gpu, cpu, rows):
               f"[train-bigru] non-finite step metrics {mt}")
     check(n == {"roi_sampler": BIGRU_TRAIN_STEPS, "ctc_greedy": 0,
                 "ctc_lattice_fwd": BIGRU_TRAIN_STEPS,
-                "ctc_lattice_bwd": BIGRU_TRAIN_STEPS},
-          f"[train-bigru] launches {n}, want one ROI and one of each CTC "
-          "kernel a step")
+                "ctc_lattice_bwd": BIGRU_TRAIN_STEPS,
+                "conv3d_dgrad": 2 * BIGRU_TRAIN_STEPS},
+          f"[train-bigru] launches {n}, want one ROI, one of each CTC "
+          "kernel and two conv3d_dgrad a step")
     stages = {}
     for _ in range(STAGE_STEPS):
         tr.train_step(next(it), stage_ms=stages)
@@ -5924,6 +6257,7 @@ def main() -> int:
         rows = phase_kernels(frames, lengths, gpu)
         rows += phase_ctc_kernels(gpu["cfg"])
         rows += phase_flash_kernels()
+        rows += phase_conv_dgrad()
         phase_path(frames, lengths, texts, gpu, rows)
         t0 = time.perf_counter()
         long = long_clips(long_futures)

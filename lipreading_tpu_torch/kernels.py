@@ -64,6 +64,8 @@ SIGNATURES = {
     # q, k, v, lengths, dout, delta, lse, dq_ws, dq, dk, dv, B, T, H, D,
     # bf16, scale, stream
     "flash_bwd_fused": [c_void_p] * 11 + [c_int] * 5 + [c_float, c_void_p],
+    # dy, wt, dx, B, T, H, W, Cin, Cout, kT, kH, kW, qT, qH, qW, stream
+    "conv3d_dgrad": [c_void_p] * 3 + [c_int] * 12 + [c_void_p],
 }
 
 

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lipreading_tpu_torch import kernels, profiling
 from lipreading_tpu_torch.ops.roi import full_float32
 
 
@@ -79,12 +80,9 @@ def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-           strides=(1, 1, 1), dtype: torch.dtype | None = None) -> torch.Tensor:
-    """x [B, T, H, W, C] (NDHWC), w [kT, kH, kW, Cin, Cout] (DHWIO), SAME
-    padding -> [B, T', H', W', Cout]."""
-    if dtype is not None:
-        w, b = w.to(dtype), b.to(dtype)
+def _conv(x: torch.Tensor, w: torch.Tensor, strides):
+    """The convolution without its bias -> (y [B, T', H', W', Cout], the
+    padded NCDHW input it read)."""
     pads = []
     for axis in (3, 2, 1):          # F.pad lists the last axis first
         pads.extend(_same_pads(x.shape[axis], w.shape[axis - 1],
@@ -93,7 +91,114 @@ def conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     # a float32 convolution in full float32, whatever cuDNN's TF32 default
     with full_float32():
         y = F.conv3d(xc, w.permute(4, 3, 0, 1, 2), stride=tuple(strides))
-    return y.permute(0, 2, 3, 4, 1) + b
+    return y.permute(0, 2, 3, 4, 1), xc
+
+
+class _Conv3dDgrad(torch.autograd.Function):
+    """A stride-1 convolution whose input gradient is ``conv3d_dgrad`` (the
+    kernel on a card). The forward and the weight gradient are the ops
+    that autograd runs through ``_conv``: the same cuDNN calls on the same
+    tensors, so the same bytes."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        y, xc = _conv(x, w, (1, 1, 1))
+        ctx.save_for_backward(xc, w)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        xc, w = ctx.saved_tensors
+        dx = conv3d_dgrad(g, w) if ctx.needs_input_grad[0] else None
+        dw = None
+        if ctx.needs_input_grad[1]:
+            dw = torch.ops.aten.convolution_backward(
+                g.permute(0, 4, 1, 2, 3), xc, w.permute(4, 3, 0, 1, 2), None,
+                [1, 1, 1], [0, 0, 0], [1, 1, 1], False, [0, 0, 0], 1,
+                [False, True, False])[1].permute(2, 3, 4, 1, 0)
+        return dx, dw
+
+
+def conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+           strides=(1, 1, 1), dtype: torch.dtype | None = None) -> torch.Tensor:
+    """x [B, T, H, W, C] (NDHWC), w [kT, kH, kW, Cin, Cout] (DHWIO), SAME
+    padding -> [B, T', H', W', Cout].
+
+    A bf16 stride-1 convolution whose input needs a gradient (grad mode on)
+    takes its input gradient from ``conv3d_dgrad`` (counted by the tracer's
+    ``conv3d.dgrad``); every other call is autograd's through cuDNN."""
+    if dtype is not None:
+        w, b = w.to(dtype), b.to(dtype)
+    if (torch.is_grad_enabled() and x.requires_grad
+            and tuple(strides) == (1, 1, 1) and x.dtype == torch.bfloat16):
+        profiling.count("conv3d.dgrad")
+        return _Conv3dDgrad.apply(x, w) + b
+    return _conv(x, w, strides)[0] + b
+
+
+def _dgrad_operands(w: torch.Tensor, size):
+    """The weight [kT, kH, kW, Cin, Cout] flipped over its taps as
+    [Cin, kT, kH, kW, Cout], and the correlation's pads q = k - 1 - (SAME's
+    pad before) for the spatial ``size`` (T, H, W)."""
+    wt = w.flip(0, 1, 2).permute(3, 0, 1, 2, 4)
+    q = tuple(k - 1 - _same_pads(n, k, 1)[0] for n, k in zip(size, w.shape))
+    return wt, q
+
+
+def conv3d_dgrad_plain(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The input gradient of a stride-1 SAME ``conv3d``: dy [B, T, H, W,
+    Cout], w [kT, kH, kW, Cin, Cout] -> dx [B, T, H, W, Cin] in dy's dtype.
+    A sum over the flipped taps of shifted products, in float32 (the
+    kernel's function; ``csrc/conv3d_dgrad.cu``)."""
+    B, T, H, W, _ = dy.shape
+    kT, kH, kW = w.shape[:3]
+    wt, (qT, qH, qW) = _dgrad_operands(w.float(), (T, H, W))
+    dyp = F.pad(dy.float(), (0, 0, qW, kW - 1 - qW, qH, kH - 1 - qH,
+                             qT, kT - 1 - qT))
+    dx = dy.new_zeros((B, T, H, W, w.shape[3]), dtype=torch.float32)
+    for jt in range(kT):
+        for jh in range(kH):
+            for jw in range(kW):
+                dx += (dyp[:, jt:jt + T, jh:jh + H, jw:jw + W]
+                       @ wt[:, jt, jh, jw].T)
+    return dx.to(dy.dtype)
+
+
+def conv3d_dgrad(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``conv3d_dgrad_plain``'s function. On CUDA tensors (bf16) it launches
+    the Hopper kernel (``csrc/conv3d_dgrad.cu``, channels padded to a
+    multiple of 8 where they are not); on CPU tensors it runs the plain
+    version."""
+    if dy.ndim != 5 or w.ndim != 5 or dy.shape[4] != w.shape[4]:
+        raise ValueError(f"conv3d_dgrad: dy {tuple(dy.shape)} and w "
+                         f"{tuple(w.shape)} are not [B, T, H, W, Cout] and "
+                         "[kT, kH, kW, Cin, Cout]")
+    if dy.device.type == "cpu" and w.device.type == "cpu":
+        return conv3d_dgrad_plain(dy, w)
+    if dy.device.type != "cuda" or w.device != dy.device:
+        raise ValueError(f"conv3d_dgrad: dy on {dy.device}, w on {w.device}; "
+                         "need both on one CUDA device")
+    if dy.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise TypeError(f"conv3d_dgrad: the kernel takes bf16, got "
+                        f"{dy.dtype} and {w.dtype}")
+    B, T, H, W, Cout = dy.shape
+    kT, kH, kW, Cin = w.shape[:4]
+    ci, co = -Cin % 8, -Cout % 8
+    if ci or co:
+        dy = F.pad(dy, (0, co))
+        w = F.pad(w, (0, co, 0, ci))
+    wt, q = _dgrad_operands(w, (T, H, W))
+    dy, wt = dy.contiguous(), wt.contiguous()
+    dx = torch.empty((B, T, H, W, Cin + ci), dtype=dy.dtype, device=dy.device)
+    err = kernels.lib().conv3d_dgrad(
+        dy.data_ptr(), wt.data_ptr(), dx.data_ptr(), B, T, H, W, Cin + ci,
+        Cout + co, kT, kH, kW, *q, kernels.stream_ptr(dy.device))
+    kernels.check(err, "conv3d_dgrad")
+    conv3d_dgrad.launches += 1
+    return dx[..., :Cin] if ci else dx
+
+
+conv3d_dgrad.launches = 0
 
 
 def maxpool3d(x: torch.Tensor, window=(1, 2, 2)) -> torch.Tensor:

@@ -459,13 +459,15 @@ def launch_counts() -> dict:
     """{kernel: launches so far} of every kernel wrapper, by the names of
     ``chip_smoke.py``'s kernel rows. A wrapper counts only where it
     launches its kernel (a CUDA tensor), never its plain version."""
+    from lipreading_tpu_torch.models import nn
     from lipreading_tpu_torch.ops import ctc, decode, roi
     from lipreading_tpu_torch.ops import flash_attention as fa
 
     wrappers = (roi.sample_rois, decode.ctc_greedy_ids, ctc.ctc_lattice_fwd,
-                ctc.ctc_lattice_bwd, *fa.WRAPPERS)
+                ctc.ctc_lattice_bwd, *fa.WRAPPERS, nn.conv3d_dgrad)
     names = ("roi_sampler", "ctc_greedy", "ctc_lattice_fwd",
-             "ctc_lattice_bwd", *(w.__name__ for w in fa.WRAPPERS))
+             "ctc_lattice_bwd", *(w.__name__ for w in fa.WRAPPERS),
+             "conv3d_dgrad")
     return {n: w.launches for n, w in zip(names, wrappers)}
 
 

@@ -852,3 +852,82 @@ def test_card_timing_helpers(cuda):
     assert 0 < sum(split.values()) <= wall
     with pytest.raises(ValueError):
         profiling.cuda_ms(torch.matmul, a.cpu(), a.cpu())
+
+
+# (B, T, H, W, kernel, Cin, Cout): ragged last blocks, channels padded to 8,
+# every N tile, a Cout chunk cut short, kernels without spatial or time
+# taps, then the stems' four shapes at a cut batch
+DGRAD_CASES = [(1, 5, 7, 9, (3, 5, 5), 8, 16), (2, 3, 5, 5, (3, 3, 3), 24, 40),
+               (1, 4, 6, 6, (1, 1, 1), 300, 72),
+               (3, 2, 4, 3, (3, 1, 3), 96, 200), (1, 7, 3, 2, (5, 1, 1), 5, 3),
+               (2, 8, 24, 24, (3, 5, 5), 32, 64),
+               (2, 8, 12, 12, (3, 3, 3), 64, 96),
+               (2, 8, 6, 6, (3, 3, 3), 256, 256),
+               (2, 8, 3, 3, (3, 3, 3), 256, 256)]
+
+
+def _dgrad_err(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,W,kernel,cin,cout", DGRAD_CASES)
+def test_conv3d_dgrad_matches_plain(cuda, B, T, H, W, kernel, cin, cout):
+    """The kernel against the plain version (float32 sums of the same bf16
+    operands, in another order): within 2^-6 of the largest value. Each
+    side rounds its float32 sum to bf16 once, so the two are at most one
+    bf16 ulp apart, which is at most 2^-7 of the largest value; twice that
+    for room. Two launches the same bytes, one launch counted."""
+    from lipreading_tpu_torch.models import nn as lnn
+
+    g = torch.Generator().manual_seed(B * 1000 + H * 10 + cin)
+    dy = torch.randn((B, T, H, W, cout), generator=g).to(torch.bfloat16)
+    w = (torch.randn((*kernel, cin, cout), generator=g) * 0.1).to(
+        torch.bfloat16)
+    dy, w = dy.to(cuda), w.to(cuda)
+    before = lnn.conv3d_dgrad.launches
+    got = lnn.conv3d_dgrad(dy, w)
+    assert lnn.conv3d_dgrad.launches == before + 1
+    again = lnn.conv3d_dgrad(dy, w)
+    want = lnn.conv3d_dgrad_plain(dy, w)
+    torch.cuda.synchronize()
+    assert got.shape == (B, T, H, W, cin) and got.dtype == torch.bfloat16
+    assert torch.equal(got, again)
+    assert _dgrad_err(got, want) <= 2.0 ** -6
+
+
+@pytest.mark.cuda
+def test_conv3d_routes_bf16_input_gradients_through_the_kernel(cuda):
+    """nn.conv3d in bf16 on an input that needs a gradient: the forward and
+    the weight gradient the same bytes as autograd's through the same
+    cuDNN convolution, the input gradient the kernel's (one launch); no
+    launch without grad mode."""
+    from lipreading_tpu_torch.models import nn as lnn
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((2, 8, 24, 24, 32), generator=g).to(torch.bfloat16)
+    w = torch.randn((3, 5, 5, 32, 64), generator=g) * 0.05
+    b = torch.randn((64,), generator=g) * 0.1
+    gy = torch.randn((2, 8, 24, 24, 64), generator=g).to(torch.bfloat16)
+    x, w, b, gy = x.to(cuda), w.to(cuda), b.to(cuda), gy.to(cuda)
+    out = {}
+    for path in ("old", "new"):
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        before = lnn.conv3d_dgrad.launches
+        if path == "old":
+            y = (lnn._conv(xr, wr.to(torch.bfloat16), (1, 1, 1))[0]
+                 + b.to(torch.bfloat16))
+        else:
+            y = lnn.conv3d(xr, wr, b, (1, 1, 1), torch.bfloat16)
+        dx, dw = torch.autograd.grad(y, (xr, wr), gy)
+        out[path] = (y, dx, dw, lnn.conv3d_dgrad.launches - before)
+    assert torch.equal(out["old"][0], out["new"][0])
+    assert torch.equal(out["old"][2], out["new"][2])
+    assert (out["old"][3], out["new"][3]) == (0, 1)
+    plain = lnn.conv3d_dgrad_plain(gy, w.to(torch.bfloat16))
+    assert _dgrad_err(out["new"][1], plain) <= 2.0 ** -6
+    before = lnn.conv3d_dgrad.launches
+    with torch.no_grad():
+        lnn.conv3d(x.clone().requires_grad_(), w, b, (1, 1, 1), torch.bfloat16)
+    assert lnn.conv3d_dgrad.launches == before

@@ -289,7 +289,7 @@ def test_entry_helpers_on_the_cpu():
     counts = profiling.launch_counts()
     assert list(counts) == ["roi_sampler", "ctc_greedy", "ctc_lattice_fwd",
                             "ctc_lattice_bwd", "flash_fwd", "flash_bwd_fused",
-                            "flash_bwd_dq", "flash_bwd_dkv"]
+                            "flash_bwd_dq", "flash_bwd_dkv", "conv3d_dgrad"]
     before = roi.sample_rois.launches
     try:
         roi.sample_rois.launches += 2
