@@ -40,7 +40,11 @@ Phases, each of which must pass:
    (the patchify stem's convA and convB) per step (counts set to 0 just
    before, read just after), the time of each stage of a step, then
    steps on one fixed batch whose loss must fall, and a checkpoint saved and
-   reloaded with equal parameters;
+   reloaded with equal parameters; ``[train-avsr]``: the Auto-AVSR model
+   (ResNet-18 trunk, 12 Conformer blocks at d 768, 5,002 outputs) from the
+   seed through ``Trainer.train_step`` at B 8 x T 128: finite losses and
+   13 launches of ``conv3d_dgrad`` a step (the trunk's stride-1 3x3
+   convolutions), the step's time and the peak memory;
 6. one step without dropout or jitter on 2 clips on the card and on the CPU
    (plain versions there): loss, gradients and updated parameters agree
    within limits that a planted fault on the card must break;
@@ -74,9 +78,11 @@ Flash attention (``model.flash_attention=1``) adds three phases:
 
 ``[conv-dgrad]`` holds the stride-1 convolutions' data-gradient kernel
 (``models/nn.conv3d_dgrad``, ``csrc/conv3d_dgrad.cu``) against its plain
-version at odd shapes and at the four stem shapes of the training cells
-(B 64 x T 96: conv1 24x24 3x5x5 32 <- 64, conv2 12x12 3x3x3 64 <- 96,
-convA 6x6 and convB 3x3 3x3x3 256 <- 256), within a limit that a planted
+version at odd shapes, at the four stem shapes of the release training
+cells (B 64 x T 96: conv1 24x24 3x5x5 32 <- 64, conv2 12x12 3x3x3 64 <-
+96, convA 6x6 and convB 3x3 3x3x3 256 <- 256) and at the ResNet-18
+trunk's four (B 32 x T 256, 1x3x3: 22x22 64 <- 64, 11x11 128 <- 128, 6x6
+256 <- 256, 3x3 512 <- 512), within a limit that a planted
 fault (the weight left unflipped) must break, two launches the same
 bytes; times the kernel (CUDA events around its bare C entry), the
 wrapper, the plain version and cuDNN's dgrad on the layouts the old path
@@ -405,14 +411,20 @@ FLASH_REPLACES = {
 }
 FLASH_ROW = {"fwd": "flash_fwd", "fused": "flash_bwd_fused",
              "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
-# [conv-dgrad]: the stem convolutions' data gradients at the training
-# cells' shapes, B 64 x T 96 (name, H = W, kernel, Cin, Cout): the conv3d
-# stem's conv1 and conv2, the patchify stem's convA and convB
-DGRAD_B, DGRAD_T = 64, 96
-DGRAD_SHAPES = (("conv1", 24, (3, 5, 5), 32, 64),
-                ("conv2", 12, (3, 3, 3), 64, 96),
-                ("convA", 6, (3, 3, 3), 256, 256),
-                ("convB", 3, (3, 3, 3), 256, 256))
+# [conv-dgrad]: the stride-1 convolutions' data gradients at the training
+# cells' shapes (name, B, T, H = W, kernel, Cin, Cout): at B 64 x T 96 the
+# conv3d stem's conv1 and conv2 and the patchify stem's convA and convB; at
+# B 32 x T 256 (train.autoavsr_vsr's longest batch) the ResNet-18 trunk's
+# 3x3 convolutions of each stage, 4 + 3 + 3 + 3 a step
+DGRAD_T = 96
+DGRAD_SHAPES = (("conv1", 64, 96, 24, (3, 5, 5), 32, 64),
+                ("conv2", 64, 96, 12, (3, 3, 3), 64, 96),
+                ("convA", 64, 96, 6, (3, 3, 3), 256, 256),
+                ("convB", 64, 96, 3, (3, 3, 3), 256, 256),
+                ("layer1", 32, 256, 22, (1, 3, 3), 64, 64),
+                ("layer2", 32, 256, 11, (1, 3, 3), 128, 128),
+                ("layer3", 32, 256, 6, (1, 3, 3), 256, 256),
+                ("layer4", 32, 256, 3, (1, 3, 3), 512, 512))
 # correctness only, (B, T, H, W, kernel, Cin, Cout): ragged last blocks,
 # channels padded to 8 by the wrapper, every N tile, a chunk of Cout cut
 # short, kernels without spatial or time taps
@@ -2148,9 +2160,9 @@ def dgrad_library_forms(dy, w, xc, plain) -> dict:
 
 def phase_conv_dgrad() -> list[dict]:
     """[conv-dgrad]: ``models/nn.conv3d_dgrad`` (the Hopper kernel) against
-    its plain version at odd shapes and at the four stem shapes of the
-    training cells, a planted fault (the weight left unflipped) at each,
-    two launches byte for byte; its device time (CUDA events around the
+    its plain version at odd shapes and at the stem and trunk shapes of
+    the training cells (``DGRAD_SHAPES``), a planted fault (the weight left
+    unflipped) at each, two launches byte for byte; its device time (CUDA events around the
     bare C entry), the wrapper's, the plain version's and cuDNN's dgrad
     (``aten.convolution_backward`` with [True, False, False] on the
     layouts the old path handed it: CUDA events, torch.profiler naming
@@ -2172,8 +2184,7 @@ def phase_conv_dgrad() -> list[dict]:
             f"{cout}: kernel vs plain {err:.3g} (limit {DGRAD_LIMIT})")
         check(err <= DGRAD_LIMIT, f"[conv-dgrad] odd shape {i}: {err}")
     out = {}
-    for j, (name, H, k, cin, cout) in enumerate(DGRAD_SHAPES):
-        B, T = DGRAD_B, DGRAD_T
+    for j, (name, B, T, H, k, cin, cout) in enumerate(DGRAD_SHAPES):
         dy, w = dgrad_inputs(B, T, H, H, k, cin, cout, 200 + j)
         before = lnn.conv3d_dgrad.launches
         got = lnn.conv3d_dgrad(dy, w)
@@ -2262,7 +2273,7 @@ def phase_conv_dgrad() -> list[dict]:
         del dy, w, got, dx, wt
         torch.cuda.empty_cache()
     fn = {name: conv_dgrad_function(name, H, k, cin, cout)
-          for name, H, k, cin, cout in DGRAD_SHAPES}
+          for name, _, _, H, k, cin, cout in DGRAD_SHAPES}
     log(f"[conv-dgrad] phase {time.perf_counter() - t_phase:.1f} s")
     return [dict(name="conv3d_dgrad", route="cuda",
                  source="lipreading_tpu_torch/csrc/conv3d_dgrad.cu",
@@ -3349,6 +3360,97 @@ def phase_train(gpu, rows):
     check(after < before, f"fixed-batch loss did not fall: {before} -> {after}")
     del tr
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+
+def avsr_cfg():
+    """The Auto-AVSR visual speech recogniser at its published widths
+    (``train.autoavsr_vsr``'s model): the ResNet-18 trunk, 12 Conformer
+    blocks at d 768, 12 heads, FFN 3072, 6 decoder layers, 5,002 outputs,
+    ESPnet's losses, dropout 0.1, bf16, from the seed."""
+    from lipreading_tpu_torch.config import Config, ModelConfig, TrainConfig
+
+    return Config(
+        name="autoavsr-vsr", encoder="conformer", decoder="hybrid",
+        loss="espnet",
+        model=ModelConfig(frontend="resnet18", tf_dim=768, tf_heads=12,
+                          tf_mlp=3072, tf_layers=12, tf_dec_layers=6,
+                          vocab_size=5002, dropout=0.1, dtype="bfloat16"),
+        train=TrainConfig(ctc_weight=0.1, att_weight=0.9))
+
+
+def avsr_batch(B: int, T: int, crop: int, V: int, seed: int) -> dict:
+    """A seeded batch as ``Trainer.train_step`` takes it: normalised-scale
+    ROIs [B, T, crop, crop] on the card, 0 past each clip's length (the
+    longest T), one token per 6 frames, targets framed by sos = eos =
+    V - 1."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    fl = torch.randint(T // 2, T + 1, (B,), generator=g, dtype=torch.int32)
+    fl[0] = T
+    cn = torch.clamp(fl // 6, min=1)
+    L = int(cn.max())
+    cl = torch.zeros((B, L), dtype=torch.int32)
+    tg = torch.zeros((B, L + 2), dtype=torch.int32)
+    for k in range(B):
+        ids = torch.randint(1, V - 2, (int(cn[k]),), generator=g,
+                            dtype=torch.int32)
+        cl[k, :len(ids)] = ids
+        tg[k, 0], tg[k, len(ids) + 1] = V - 1, V - 1
+        tg[k, 1:len(ids) + 1] = ids
+    rois = torch.randn((B, T, crop, crop), generator=g)
+    rois *= (torch.arange(T)[None] < fl[:, None])[..., None, None]
+    host = {"rois": rois, "frame_lengths": fl, "targets": tg,
+            "target_lengths": cn + 2, "ctc_labels": cl, "ctc_lengths": cn}
+    return {k: v.cuda() for k, v in host.items()}
+
+
+def phase_train_avsr():
+    """[train-avsr]: the Auto-AVSR model (``avsr_cfg``) through
+    ``Trainer.train_step`` on the card: finite losses and 13 launches of
+    ``conv3d_dgrad`` a step (the ResNet-18 trunk's stride-1 3x3
+    convolutions; the count set to 0 just before each step, read just
+    after), the step's time and the peak memory."""
+    import torch
+
+    from lipreading_tpu_torch.models.nn import conv3d_dgrad
+    from lipreading_tpu_torch.train.loop import Trainer
+
+    B, T, crop, steps = 8, 128, 88, 3
+    cfg = avsr_cfg()
+    wd = TRAIN_DIR + "_avsr"
+    shutil.rmtree(wd, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, wd, "cuda")
+    n = sum(p.numel() for p in tr.model.parameters())
+    batch = avsr_batch(B, T, crop, cfg.model.vocab_size, 5)
+    tr.train_step(batch)                           # warm-up
+    torch.cuda.synchronize()
+    log(f"[train-avsr] Auto-AVSR VSR from the seed, {n / 1e6:.1f} M "
+        f"parameters, B {B} x T {T} of {crop}x{crop}, {cfg.model.dtype}: "
+        f"built and warmed up in {time.perf_counter() - t0:.1f} s")
+    for i in range(steps):
+        conv3d_dgrad.launches = 0
+        t0 = time.perf_counter()
+        m = tr.train_step(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = conv3d_dgrad.launches
+        m = {k: float(v) for k, v in m.items()}
+        log(f"[train-avsr]   step {i + 2}: loss {m['loss']:.4f} ctc "
+            f"{m['ctc_loss']:.4f} att {m['att_loss']:.4f} ({ms:.1f} ms, "
+            f"host clock, synchronised); conv3d_dgrad launches {launches}")
+        check(all(v == v and abs(v) != float("inf") for v in m.values()),
+              f"[train-avsr] non-finite step metrics {m}")
+        check(launches == 13, f"[train-avsr] conv3d_dgrad {launches} "
+              "launches in a step, want 13 (the trunk's stride-1 3x3 "
+              "convolutions)")
+    del tr
+    shutil.rmtree(wd, ignore_errors=True)
+    log(f"[train-avsr] peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    torch.cuda.empty_cache()
 
 
 def parity_readings(a: dict, b: dict, lr: float) -> dict:
@@ -6271,6 +6373,7 @@ def main() -> int:
         phase_serve(gpu_t, cpu_t, rows)
         del gpu_t, cpu_t
         phase_train(gpu, rows)
+        phase_train_avsr()
         phase_train_flash(gpu, long, rows)
         phase_train_parity(gpu)
         views = phase_dataview(rows)

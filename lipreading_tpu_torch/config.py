@@ -5,6 +5,12 @@ A copy of the fields of ``lipreading_tpu/config.py``, so that a release's
 here (a training workdir's, an exported release's) reads the same in the
 JAX package. The mesh section lays out multi-GPU training
 (``parallel/mesh.py``).
+
+The port alone adds the ``loss`` field, the one setting of the Auto-AVSR
+family (``frontend="resnet18"``, ``encoder="conformer"``; Ma et al. 2023,
+arXiv:2303.14307) that no JAX field holds. ``to_dict`` leaves it out while
+it holds its default, so every release, preset and workdir config writes
+the JAX package's dict.
 """
 
 from __future__ import annotations
@@ -130,8 +136,14 @@ class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
-    encoder: str = "bigru"        # "bigru" | "transformer"
+    encoder: str = "bigru"        # "bigru" | "transformer" | "conformer"
     decoder: str = "ctc"          # "ctc" | "attention" | "hybrid"
+    # the loss terms' form: "mean" (the releases': CTC the mean over samples
+    # of the per-label NLL, cross-entropy the mean over target tokens) or
+    # "espnet" (ESPnet's, as Auto-AVSR trains: each term summed over the
+    # batch and divided by the number of clips, the decoder's cross-entropy
+    # label-smoothed by ``models/lipreader.LABEL_SMOOTHING``)
+    loss: str = "mean"
 
     def override(self, **dotted: Any) -> "Config":
         """Apply dotted-path overrides, e.g. ``override(**{"train.seed": 3})``;
@@ -156,7 +168,12 @@ class Config:
         return cfg
 
     def to_dict(self) -> dict:
-        return dataclasses.asdict(self)
+        """Every field; the port-only ``loss`` only where it is not its
+        default (the module doc)."""
+        d = dataclasses.asdict(self)
+        if self.loss == "mean":
+            del d["loss"]
+        return d
 
 
 def load_workdir_config(workdir: str) -> Config | None:
@@ -253,5 +270,6 @@ def from_dict(d: dict) -> Config:
         mesh=build(MeshConfig, d.get("mesh", {})),
         encoder=d.get("encoder", "bigru"),
         decoder=d.get("decoder", "ctc"),
+        loss=d.get("loss", "mean"),
     )
     return cfg

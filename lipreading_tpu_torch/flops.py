@@ -2,9 +2,13 @@
 
 Counts multiply-accumulate work (2 FLOPs per MAC) of every matrix product
 and convolution of the model, for every family (either stem, the
-transformer or bi-GRU encoder, the CTC head and either attention decoder);
-elementwise, normalisation and softmax work is left out, as in the JAX
-package. ``train_step_flops`` is 3x the forward.
+transformer or bi-GRU encoder, the CTC head and either attention decoder;
+the port's Auto-AVSR family: the ResNet-18 trunk on crops of the edge
+the caller passes, ``roi_size`` by default, and the Conformer encoder, its depthwise convolutions and relative
+positions included); elementwise, normalisation, pooling and softmax work
+is left out, as in the JAX package. ``train_step_flops`` is 3x the
+forward (the Conformer's projection of the relative positions counted once
+a batch, as it runs).
 
 ``device_peak_flops`` is NVIDIA's published dense peak of the current card
 for the compute type: the H100 SXM (989 TFLOP/s bf16, 67 TFLOP/s float32
@@ -19,6 +23,8 @@ from __future__ import annotations
 import math
 
 from lipreading_tpu_torch.config import Config, PreprocessConfig
+from lipreading_tpu_torch.models.conformer import CONV_KERNEL
+from lipreading_tpu_torch.models.resnet import STRIDES, WIDTHS
 
 # dense peak FLOP/s by the product in torch.cuda.get_device_name() and dtype
 _PEAKS = {
@@ -96,6 +102,47 @@ def frontend_flops(cfg: Config, T: int) -> float:
     return f
 
 
+def resnet18_flops(cfg: Config, T: int, crop: int | None = None) -> float:
+    """Per-sample forward FLOPs of the ResNet-18 trunk over T frames of
+    ``crop`` (default ``roi_size``) pixels a side."""
+    C = crop or cfg.preprocess.roi_size
+    f = conv3d_flops(T, C, C, (5, 7, 7), 1, WIDTHS[0], (1, 2, 2))
+    s = -(-(-(-C // 2)) // 2)          # ceil(ceil(C / 2) / 2): conv0, pool
+    cin = WIDTHS[0]
+    for cout, stride in zip(WIDTHS, STRIDES):
+        so = -(-s // stride)
+        f += conv3d_flops(T, so, so, (1, 3, 3), cin, cout)
+        f += 3 * conv3d_flops(T, so, so, (1, 3, 3), cout, cout)
+        if stride != 1 or cin != cout:
+            f += conv3d_flops(T, so, so, (1, 1, 1), cin, cout)
+        s, cin = so, cout
+    return f
+
+
+def conformer_encoder_flops(cfg: Config, T: int) -> float:
+    """Per-sample forward FLOPs of the Conformer encoder: the input
+    projection, and in each block two FFNs, the q, k, v and output
+    projections, the content and position scores (T x T and T x (2T-1)),
+    the weighted sum and the convolution module; the positions' own
+    projection (once a batch) is ``relpos_flops``."""
+    m = cfg.model
+    D, M, K = m.tf_dim, m.tf_mlp, CONV_KERNEL
+    per_block = (
+        2 * (_dense(T, D, M) + _dense(T, M, D))
+        + 4 * _dense(T, D, D)
+        + 2.0 * T * T * D + 2.0 * T * (2 * T - 1) * D + 2.0 * T * T * D
+        + _dense(T, D, 2 * D) + 2.0 * T * D * K + _dense(T, D, D)
+    )
+    return m.tf_layers * per_block + _dense(T, WIDTHS[-1], D)
+
+
+def relpos_flops(cfg: Config, T: int) -> float:
+    """The Conformer blocks' projections of the 2T-1 relative positions,
+    computed once a batch."""
+    m = cfg.model
+    return m.tf_layers * _dense(2 * T - 1, m.tf_dim, m.tf_dim)
+
+
 def bigru_flops(cfg: Config, T: int) -> float:
     """Both directions of every bi-GRU layer: the input projection and the
     recurrence."""
@@ -153,12 +200,19 @@ def ctc_head_flops(cfg: Config, T: int) -> float:
     return _dense(T, enc, m.vocab_size)
 
 
-def model_fwd_flops(cfg: Config, T: int, L: int) -> float:
+def model_fwd_flops(cfg: Config, T: int, L: int,
+                    crop: int | None = None) -> float:
     """Per-sample forward FLOPs of the configured model, loss heads
-    included."""
-    f = frontend_flops(cfg, T)
+    included; ``crop`` is the ROI edge the ResNet-18 trunk reads (the other
+    stems read ``roi_size``)."""
+    if cfg.model.frontend == "resnet18":
+        f = resnet18_flops(cfg, T, crop)
+    else:
+        f = frontend_flops(cfg, T)
     if cfg.encoder == "bigru":
         f += bigru_flops(cfg, T)
+    elif cfg.encoder == "conformer":
+        f += conformer_encoder_flops(cfg, T)
     else:
         f += transformer_encoder_flops(cfg, T)
     if cfg.decoder in ("ctc", "hybrid"):
@@ -171,9 +225,11 @@ def model_fwd_flops(cfg: Config, T: int, L: int) -> float:
     return f
 
 
-def train_step_flops(cfg: Config, B: int, T: int, L: int) -> float:
+def train_step_flops(cfg: Config, B: int, T: int, L: int,
+                     crop: int | None = None) -> float:
     """fwd + bwd ~= 3x fwd (the standard dense-training rule)."""
-    return 3.0 * B * model_fwd_flops(cfg, T, L)
+    once = relpos_flops(cfg, T) if cfg.encoder == "conformer" else 0.0
+    return 3.0 * (B * model_fwd_flops(cfg, T, L, crop) + once)
 
 
 def preprocess_flops(pre: PreprocessConfig, H: int, W: int) -> float:

@@ -18,6 +18,15 @@ after the bi-GRU and the transformer decoder after the transformer. Over a
 mesh of ranks (``parallel/mesh.py``) ``encode`` routes the transformer
 encoder through ring attention or the GPipe pipeline, and each loss
 divides by its global denominator (``data_total``).
+
+The port alone has the Auto-AVSR family (no JAX counterpart):
+``frontend="resnet18"`` (``models/resnet.py``), ``encoder="conformer"``
+(``models/conformer.py``, its own transformer decoder), dropout on the CTC
+head's input, and ESPnet's losses (``loss="espnet"``): each term over the
+number of clips, the decoder's label-smoothed by ``LABEL_SMOOTHING``.
+Its BatchNorm layers use the batch's statistics while the model is in
+training mode (``nn.Module.train``, the default) and update their running
+statistics; ``eval()`` uses the running ones.
 """
 
 from __future__ import annotations
@@ -34,9 +43,16 @@ from lipreading_tpu_torch.models.attention import (
     AttnDecoder,
     teacher_forced_logits,
 )
+from lipreading_tpu_torch.models.conformer import (
+    AvsrDecoder,
+    ConformerEncoder,
+    ConvModule,
+    RelPosMHA,
+)
 from lipreading_tpu_torch.models.frontend3d import Frontend3D, Patchify
 from lipreading_tpu_torch.models.gru import BiGRU, GRUCell
-from lipreading_tpu_torch.models.nn import Dense, length_mask
+from lipreading_tpu_torch.models.nn import Dense, dropout, length_mask
+from lipreading_tpu_torch.models.resnet import ConvW, ResNet18Trunk
 from lipreading_tpu_torch.models.transformer import (
     TransformerDecoder,
     TransformerEncoder,
@@ -57,14 +73,26 @@ class LipReader(nn.Module):
     def __init__(self, cfg: Config):
         super().__init__()
         m = cfg.model
-        if m.frontend not in ("patchify", "conv3d"):
+        if m.frontend not in ("patchify", "conv3d", "resnet18"):
             raise ValueError(f"unknown frontend {m.frontend!r}")
         if cfg.decoder not in ("ctc", "attention", "hybrid"):
             raise ValueError(f"unknown decoder {cfg.decoder!r}")
+        if cfg.loss not in ("mean", "espnet"):
+            raise ValueError(f"unknown loss {cfg.loss!r}")
         self.cfg = cfg
-        stem = Patchify if m.frontend == "patchify" else Frontend3D
-        self.frontend = stem(m, cfg.preprocess.roi_size)
-        if cfg.encoder == "bigru":
+        if m.frontend == "resnet18":
+            self.frontend = ResNet18Trunk()
+        else:
+            stem = Patchify if m.frontend == "patchify" else Frontend3D
+            self.frontend = stem(m, cfg.preprocess.roi_size)
+        feat_dim = (ResNet18Trunk.out_dim if m.frontend == "resnet18"
+                    else m.frontend_dim)
+        if cfg.encoder == "conformer":
+            self.encoder = ConformerEncoder(m, feat_dim)
+            enc_dim = m.tf_dim
+        elif m.frontend == "resnet18":
+            raise ValueError("frontend 'resnet18' needs encoder 'conformer'")
+        elif cfg.encoder == "bigru":
             self.encoder = BiGRU(m.frontend_dim, m.gru_hidden, m.gru_layers)
             enc_dim = 2 * m.gru_hidden
         elif cfg.encoder == "transformer":
@@ -75,9 +103,12 @@ class LipReader(nn.Module):
         if cfg.decoder in ("ctc", "hybrid"):
             self.ctc_head = Dense(enc_dim, m.vocab_size)
         if cfg.decoder in ("attention", "hybrid"):
-            self.att_decoder = (AttnDecoder(m, enc_dim)
-                                if cfg.encoder == "bigru"
-                                else TransformerDecoder(m))
+            if cfg.encoder == "bigru":
+                self.att_decoder = AttnDecoder(m, enc_dim)
+            elif cfg.encoder == "conformer":
+                self.att_decoder = AvsrDecoder(m)
+            else:
+                self.att_decoder = TransformerDecoder(m)
 
 
 @torch.no_grad()
@@ -87,7 +118,11 @@ def init_params_(model: LipReader, gen: torch.Generator) -> LipReader:
     conv weights and biases uniform in +-1/sqrt(fan_in), GRU cells' in
     +-1/sqrt(H), the highway gate bias shifted by -2, embedding tables
     standard normal, norms at scale 1 and bias 0, ``pos`` the sinusoidal
-    table. The values differ from ``jax.random``'s."""
+    table. The values differ from ``jax.random``'s. The Auto-AVSR family:
+    the trunk's convolutions normal with std sqrt(2 / (kT kH kW Cout)) (the
+    ResNet rule), the depthwise convolutions uniform in +-1/sqrt(kernel),
+    the relative attention's biases u and v Xavier-uniform, BatchNorm at
+    scale 1, bias 0, running mean 0 and variance 1."""
     dev = next(model.parameters()).device
 
     def uniform_(p, scale):
@@ -109,6 +144,18 @@ def init_params_(model: LipReader, gen: torch.Generator) -> LipReader:
             uniform_(mod.b, scale)
         elif isinstance(mod, lnn.Embedding):
             mod.table.copy_(torch.randn(mod.table.shape, generator=gen))
+        elif isinstance(mod, ConvW):
+            std = math.sqrt(2.0 / math.prod(mod.w.shape[:3] + mod.w.shape[4:]))
+            mod.w.copy_(torch.randn(mod.w.shape, generator=gen).mul_(std))
+        elif isinstance(mod, ConvModule):
+            scale = 1.0 / math.sqrt(mod.dw_w.shape[1])
+            uniform_(mod.dw_w, scale)
+            uniform_(mod.dw_b, scale)
+        elif isinstance(mod, RelPosMHA):
+            H, Dh = mod.bias_u.shape
+            bound = math.sqrt(6.0 / (H + Dh))
+            uniform_(mod.bias_u, bound)
+            uniform_(mod.bias_v, bound)
     for mod in model.modules():
         if isinstance(mod, lnn.Highway):
             mod.t.b.sub_(2.0)
@@ -201,6 +248,11 @@ def _encode(model, cfg, rois, frame_lengths, dtype, gen, mesh):
                 "encoder (the bi-GRU is sequential over time)"
             )
         return model.encoder(feats, frame_lengths, dtype, gen, rate)
+    if cfg.encoder == "conformer":
+        if mp_live:
+            raise ValueError("the conformer encoder runs on one device a "
+                             "replica (no model mesh axis)")
+        return model.encoder(feats, frame_lengths, dtype, gen, rate)
     m = cfg.model
     if pp:
         from lipreading_tpu_torch.parallel.pipeline import (
@@ -225,6 +277,30 @@ def ctc_logits(model: LipReader, enc: torch.Tensor,
                dtype: torch.dtype | None = None) -> torch.Tensor:
     """[B, T, D] -> [B, T, V] float32 CTC logits."""
     return model.ctc_head(enc, dtype).float()
+
+
+LABEL_SMOOTHING = 0.1    # ESPnet's, as Auto-AVSR trains (``loss="espnet"``)
+
+
+def label_smoothing_loss(logits: torch.Tensor, targets_out: torch.Tensor,
+                         target_lengths: torch.Tensor, smoothing: float,
+                         clips: torch.Tensor) -> torch.Tensor:
+    """ESPnet's ``LabelSmoothingLoss(normalize_length=False)``: over the
+    real positions of logits [B, L-1, V], the KL divergence from the log-
+    softmax to the target distribution (1 - ``smoothing`` on the target,
+    ``smoothing`` / (V - 1) on each other class), summed and divided by
+    ``clips``. It is the smoothed cross-entropy less the target
+    distribution's entropy, a constant."""
+    V = logits.shape[-1]
+    L = targets_out.shape[1]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    tgt = torch.gather(logp, 2, targets_out.long()[..., None])[..., 0]
+    conf, off = 1.0 - smoothing, smoothing / (V - 1)
+    kl = -conf * tgt - off * (logp.sum(-1) - tgt)
+    if smoothing > 0.0:
+        kl = kl + conf * math.log(conf) + smoothing * math.log(off)
+    mask = length_mask(target_lengths - 1, L).float()
+    return (kl * mask).sum() / clips
 
 
 def attention_logits(model: LipReader, cfg: Config, enc: torch.Tensor,
@@ -314,11 +390,22 @@ def compute_loss(model: LipReader, cfg: Config, batch: dict,
     metrics = {}
     loss = torch.zeros((), device=enc.device)
     sw = batch.get("sample_weight")
+    clips = None                # ESPnet's denominator: the clips
+    if cfg.loss == "espnet":
+        n = (torch.tensor(float(enc.shape[0]), device=enc.device)
+             if sw is None else sw.float().sum())
+        clips = torch.clamp(data_total(n, mesh), min=1.0)
     if cfg.decoder in ("ctc", "hybrid"):
-        nll = ctc_loss_best(ctc_logits(model, enc), batch["ctc_labels"],
+        head_in = enc
+        if cfg.encoder == "conformer":
+            head_in = dropout(enc, cfg.model.dropout, gen)
+        nll = ctc_loss_best(ctc_logits(model, head_in), batch["ctc_labels"],
                             lengths, batch["ctc_lengths"])
         per = nll / torch.clamp(batch["ctc_lengths"].float(), min=1.0)
-        if sw is None and (mesh is None or mesh.data.group is None):
+        if clips is not None:
+            lc = (nll if sw is None
+                  else torch.where(sw > 0, nll, 0.0)).sum() / clips
+        elif sw is None and (mesh is None or mesh.data.group is None):
             lc = per.mean()
         elif sw is None:
             lc = per.sum() / data_total(
@@ -333,9 +420,16 @@ def compute_loss(model: LipReader, cfg: Config, batch: dict,
     if cfg.decoder in ("attention", "hybrid"):
         att = attention_logits(model, cfg, enc, lengths, batch["targets"],
                                gen=gen)
-        la = cross_entropy_loss(att, batch["targets"][:, 1:],
-                                batch["target_lengths"], sample_weight=sw,
-                                mesh=mesh)
+        if clips is not None:
+            tl = batch["target_lengths"]
+            if sw is not None:
+                tl = torch.where(sw > 0, tl, 1)
+            la = label_smoothing_loss(att, batch["targets"][:, 1:], tl,
+                                      LABEL_SMOOTHING, clips)
+        else:
+            la = cross_entropy_loss(att, batch["targets"][:, 1:],
+                                    batch["target_lengths"],
+                                    sample_weight=sw, mesh=mesh)
         w = t.att_weight if cfg.decoder == "hybrid" else 1.0
         loss = loss + w * la
         metrics["att_loss"] = la

@@ -119,21 +119,24 @@ class _Conv3dDgrad(torch.autograd.Function):
         return dx, dw
 
 
-def conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+def conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
            strides=(1, 1, 1), dtype: torch.dtype | None = None) -> torch.Tensor:
     """x [B, T, H, W, C] (NDHWC), w [kT, kH, kW, Cin, Cout] (DHWIO), SAME
-    padding -> [B, T', H', W', Cout].
+    padding -> [B, T', H', W', Cout]; ``b`` None adds no bias.
 
     A bf16 stride-1 convolution whose input needs a gradient (grad mode on)
     takes its input gradient from ``conv3d_dgrad`` (counted by the tracer's
     ``conv3d.dgrad``); every other call is autograd's through cuDNN."""
     if dtype is not None:
-        w, b = w.to(dtype), b.to(dtype)
+        w = w.to(dtype)
+        b = None if b is None else b.to(dtype)
     if (torch.is_grad_enabled() and x.requires_grad
             and tuple(strides) == (1, 1, 1) and x.dtype == torch.bfloat16):
         profiling.count("conv3d.dgrad")
-        return _Conv3dDgrad.apply(x, w) + b
-    return _conv(x, w, strides)[0] + b
+        y = _Conv3dDgrad.apply(x, w)
+    else:
+        y = _conv(x, w, strides)[0]
+    return y if b is None else y + b
 
 
 def _dgrad_operands(w: torch.Tensor, size):
@@ -269,13 +272,46 @@ class Embedding(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
+        self.eps = eps
 
     def forward(self, x):
-        return layernorm(x, self.scale, self.bias)
+        return layernorm(x, self.scale, self.bias, self.eps)
+
+
+def batchnorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              mean: torch.Tensor, var: torch.Tensor, train: bool,
+              momentum: float = 0.1, eps: float = 1e-5) -> torch.Tensor:
+    """BatchNorm over the trailing channel axis of [..., C], float32
+    statistics, the result in x's dtype. In training the statistics of all
+    rows (every axis but the last; population variance), and the running
+    ``mean`` and ``var`` updated in place as ``torch.nn.BatchNorm*`` updates
+    them (momentum 0.1, the variance unbiased); otherwise the running
+    ones."""
+    C = x.shape[-1]
+    y = F.batch_norm(x.reshape(-1, C), mean, var, scale, bias,
+                     training=train, momentum=momentum, eps=eps)
+    return y.reshape(x.shape)
+
+
+class BatchNorm(nn.Module):
+    """``batchnorm`` with its parameters and running statistics (buffers
+    ``mean`` 0 and ``var`` 1); the module's ``training`` flag picks the
+    statistics."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+
+    def forward(self, x):
+        return batchnorm(x, self.scale, self.bias, self.mean, self.var,
+                         self.training)
 
 
 class GroupNorm(nn.Module):

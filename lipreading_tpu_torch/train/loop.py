@@ -298,7 +298,8 @@ class Trainer:
             metrics = self.train_step(batch)
             B, T, frames, L = _batch_dims(batch)
             window_frames += frames
-            window_flops += train_step_flops(self.cfg, B, T, L)
+            crop = batch["rois"].shape[-1] if isinstance(batch, dict) else None
+            window_flops += train_step_flops(self.cfg, B, T, L, crop)
             if self.step % t_cfg.log_every == 0:
                 m = {k: float(v) for k, v in metrics.items()}
                 if self.mesh.data.group is not None:
